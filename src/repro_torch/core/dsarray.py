@@ -1,0 +1,587 @@
+"""DsArray: the paper's distributed array over one PyTorch tensor.
+
+The port of ``repro.core.dsarray`` (dense blocks).  A ds-array is a 2-D
+array cut into blocks of arbitrary size; here the blocks live in one
+**stacked block tensor** of shape ``(gn, gm, bn, bm)`` (grid dims first,
+block dims last).  Edge blocks are padded, and each array carries a
+**pad state**: ``ZERO`` (pad exactly 0), ``FILL(v)`` (pad is the known
+constant v) or ``DIRTY`` (unknown), derived by running each op on the pad
+constants.  Consumers that need a zero pad (reductions, matmul, structural
+ops) call ``ensure_zero_pad()``, so zero-preserving op chains pay no mask
+pass at all.
+
+Device rule: every creation routine takes ``device=`` (default ``"cuda"``);
+every other op runs where its input tensors are.  Nothing picks the device
+from the environment, and a CUDA request on a machine without a card
+raises instead of landing on the CPU.
+
+Dtypes stay 32-bit, as in the JAX package (which never enables x64):
+``from_array`` turns float64 into float32 and int64 into int32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.blocking import BlockGrid
+
+Number = Union[int, float]
+
+# what 64-bit inputs become, so dtypes match the 32-bit reference
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            f"available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _axis_mask(size: int, g: int, b: int, device) -> torch.Tensor:
+    """(g, b) bool mask: True where global index g*b_idx + offset < size."""
+    idx = torch.arange(g * b, device=device).reshape(g, b)
+    return idx < size
+
+
+def _valid_mask(grid: BlockGrid, stacked_grid: Tuple[int, int],
+                device) -> torch.Tensor:
+    """Boolean mask over the stacked tensor marking logically-valid elements,
+    built from two per-axis masks broadcast together."""
+    n, m = grid.shape
+    bn, bm = grid.block_shape
+    gn, gm = stacked_grid
+    rows = _axis_mask(n, gn, bn, device)                 # (gn, bn)
+    cols = _axis_mask(m, gm, bm, device)                 # (gm, bm)
+    return rows[:, None, :, None] & cols[None, :, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Pad-state tracking
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PadState:
+    """Claim about the pad region: "zero" | "fill" (constant ``fill``) |
+    "dirty" (unknown)."""
+
+    kind: str
+    fill: Optional[Any] = None
+
+    @property
+    def value(self):
+        """The pad constant (only meaningful for zero/fill)."""
+        return 0 if self.kind == "zero" else self.fill
+
+
+PAD_ZERO = PadState("zero")
+PAD_DIRTY = PadState("dirty")
+
+
+def pad_state_of(val) -> PadState:
+    """PadState for a known constant pad value; nan demotes to DIRTY."""
+    try:
+        if isinstance(val, torch.Tensor):
+            item = val.item()
+        else:
+            item = np.asarray(val).item()
+    except (TypeError, ValueError, RuntimeError):
+        return PAD_DIRTY
+    if item != item:  # nan
+        return PAD_DIRTY
+    if item == 0:
+        return PAD_ZERO
+    return PadState("fill", item)
+
+
+def _probe_scalar(val, dtype) -> torch.Tensor:
+    """A 0-d CPU tensor holding ``val`` in ``dtype`` for pad probing."""
+    return torch.tensor(np.asarray(val).item(), dtype=dtype)
+
+
+def _probe_binary_pad(op, lhs_state: PadState, lhs_dtype, rhs,
+                      reverse: bool = False) -> PadState:
+    """Pad state of ``op(lhs, rhs)`` from the operands' pad constants.
+
+    ``rhs`` is a (PadState, dtype) pair for a DsArray operand, else a
+    scalar.  Any failure of the probe demotes to DIRTY."""
+    if lhs_state.kind == "dirty":
+        return PAD_DIRTY
+    try:
+        lv = _probe_scalar(lhs_state.value, lhs_dtype)
+        if isinstance(rhs, tuple):
+            rstate, rdtype = rhs
+            if rstate.kind == "dirty":
+                return PAD_DIRTY
+            rv = _probe_scalar(rstate.value, rdtype)
+        elif isinstance(rhs, torch.Tensor):
+            rv = rhs.detach().cpu()
+        else:
+            rv = rhs
+        out = op(rv, lv) if reverse else op(lv, rv)
+        return pad_state_of(out)
+    except (TypeError, ValueError, RuntimeError, ZeroDivisionError):
+        return PAD_DIRTY
+
+
+def _probe_map_pad(fn, state: PadState, dtype) -> PadState:
+    """Pad state of ``fn(blocks)`` for an elementwise ``fn``: run it on a
+    (1,1,1,1) constant holding the pad value.  A failure or a change of
+    shape demotes to DIRTY."""
+    if state.kind == "dirty":
+        return PAD_DIRTY
+    try:
+        probe = torch.full((1, 1, 1, 1), np.asarray(state.value).item(),
+                           dtype=dtype)
+        out = fn(probe)
+        if getattr(out, "shape", None) != (1, 1, 1, 1):
+            return PAD_DIRTY
+        return pad_state_of(out)
+    except (TypeError, ValueError, RuntimeError, ZeroDivisionError):
+        return PAD_DIRTY
+
+
+def _scalar_operand(other):
+    """``other`` as a 0-d operand, or None when it is not a scalar."""
+    if isinstance(other, (int, float)):
+        return other
+    if isinstance(other, (np.ndarray, np.generic)) and np.ndim(other) == 0:
+        return np.asarray(other).item()
+    if isinstance(other, torch.Tensor) and other.ndim == 0:
+        return other
+    return None
+
+
+class DsArray:
+    """2-D blocked array with a NumPy-like API (paper §4.2.3).
+
+    Build one with :func:`from_array`, :func:`zeros`, :func:`full`,
+    :func:`eye` or :func:`random_array`.
+    """
+
+    __slots__ = ("blocks", "grid", "pad_state")
+
+    def __init__(self, blocks: torch.Tensor, grid: BlockGrid,
+                 pad_state: PadState = PAD_ZERO):
+        if blocks.ndim != 4:
+            raise ValueError(
+                f"stacked block tensor must be rank 4, got {tuple(blocks.shape)}")
+        bn, bm = grid.block_shape
+        if tuple(blocks.shape[2:]) != (bn, bm):
+            raise ValueError(
+                f"block dims {tuple(blocks.shape[2:])} != block_shape "
+                f"{grid.block_shape}")
+        gn, gm = grid.grid
+        if blocks.shape[0] < gn or blocks.shape[1] < gm:
+            raise ValueError(
+                f"stacked grid {tuple(blocks.shape[:2])} smaller than logical "
+                f"grid {grid.grid}")
+        self.blocks = blocks
+        self.grid = grid
+        self.pad_state = pad_state
+
+    # -- basic properties -----------------------------------------------------
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.grid.shape
+
+    @property
+    def block_shape(self) -> Tuple[int, int]:
+        return self.grid.block_shape
+
+    @property
+    def stacked_grid(self) -> Tuple[int, int]:
+        return tuple(self.blocks.shape[:2])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    @property
+    def block_format(self) -> str:
+        """Storage of the stacked blocks; the port has dense blocks only."""
+        return "dense"
+
+    @property
+    def T(self) -> "DsArray":
+        return self.transpose()
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (f"DsArray(shape={self.shape}, block_shape={self.block_shape}, "
+                f"grid={self.stacked_grid}, dtype={self.dtype}, "
+                f"device={self.device})")
+
+    # -- masking --------------------------------------------------------------
+    def _mask(self) -> torch.Tensor:
+        return _valid_mask(self.grid, self.stacked_grid, self.blocks.device)
+
+    def _remask(self, fill: Number = 0) -> torch.Tensor:
+        """Blocks with the pad region forced to ``fill``."""
+        fill_v = torch.tensor(fill, dtype=self.dtype, device=self.device)
+        return torch.where(self._mask(), self.blocks, fill_v)
+
+    def ensure_zero_pad(self) -> "DsArray":
+        """Self if the pad is known zero, else a re-masked copy (the single
+        enforcement point of the pad-is-zero invariant)."""
+        if self.pad_state.kind == "zero":
+            return self
+        return DsArray(self._remask(), self.grid, PAD_ZERO)
+
+    def _with_blocks(self, blocks: torch.Tensor,
+                     grid: Optional[BlockGrid] = None,
+                     pad_state: PadState = PAD_ZERO) -> "DsArray":
+        return DsArray(blocks, grid if grid is not None else self.grid,
+                       pad_state)
+
+    # -- materialization ------------------------------------------------------
+    def collect(self) -> torch.Tensor:
+        """Paper §4.2.3 ``collect``: merge the blocks into one local tensor."""
+        gn, gm, bn, bm = self.blocks.shape
+        n, m = self.shape
+        global_form = self.blocks.permute(0, 2, 1, 3).reshape(gn * bn, gm * bm)
+        return global_form[:n, :m]
+
+    # -- validation -------------------------------------------------------------
+    def check_invariants(self) -> "DsArray":
+        """Validate the static claims against the data; raises on violation,
+        returns self.  Checked: grid/shape geometry and the pad region
+        matching ``pad_state``."""
+        gn, gm = self.grid.grid
+        bn, bm = self.grid.block_shape
+        n, m = self.shape
+        if n > gn * bn or m > gm * bm:
+            raise AssertionError(f"grid {self.grid} does not cover shape")
+        sgn, sgm = self.stacked_grid
+        blocks = self.blocks.detach().cpu()
+        if blocks.dtype == torch.bfloat16:
+            blocks = blocks.float()          # numpy has no bfloat16
+        g = blocks.numpy().transpose(0, 2, 1, 3).reshape(sgn * bn, sgm * bm)
+        pad_mask = (np.arange(sgn * bn)[:, None] >= n) | \
+                   (np.arange(sgm * bm)[None, :] >= m)
+        if self.pad_state.kind == "zero":
+            bad = pad_mask & (g != 0)
+        elif self.pad_state.kind == "fill":
+            bad = pad_mask & (g != np.asarray(self.pad_state.fill, g.dtype))
+        else:
+            return self
+        if bad.any():
+            r, c = (int(v) for v in np.argwhere(bad)[0])
+            gi, bi = divmod(r, bn)
+            gj, bj = divmod(c, bm)
+            raise AssertionError(
+                f"pad_state={self.pad_state} but pad region differs: "
+                f"{int(bad.sum())} violation(s), first in block "
+                f"({gi}, {gj}) at offset ({bi}, {bj}) "
+                f"(global ({r}, {c}), value {g[r, c]!r})")
+        return self
+
+    # -- elementwise ----------------------------------------------------------
+    def _binary(self, other, op: Callable, reverse: bool = False) -> "DsArray":
+        me = self
+        if isinstance(other, DsArray):
+            if other.shape != self.shape:
+                raise ValueError(f"shape mismatch {self.shape} vs {other.shape}")
+            if other.block_shape != self.block_shape:
+                other = other.rechunk(self.block_shape)
+            if other.stacked_grid != self.stacked_grid:
+                common = (max(me.stacked_grid[0], other.stacked_grid[0]),
+                          max(me.stacked_grid[1], other.stacked_grid[1]))
+                me = me._pad_grid_to(common)
+                other = other._pad_grid_to(common)
+            rhs = other.blocks
+            probe_rhs = (other.pad_state, other.dtype)
+        else:
+            rhs = _scalar_operand(other)
+            if rhs is None:
+                return NotImplemented
+            probe_rhs = rhs
+        out = op(rhs, me.blocks) if reverse else op(me.blocks, rhs)
+        # both pad regions hold known constants at the SAME positions, so the
+        # result pad is the op of the constants — no remask, just bookkeeping
+        pad = _probe_binary_pad(op, me.pad_state, me.dtype, probe_rhs, reverse)
+        return DsArray(out, BlockGrid(me.shape, me.block_shape), pad)
+
+    def __add__(self, o):
+        return self._binary(o, torch.add)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, torch.sub)
+
+    def __rsub__(self, o):
+        return self._binary(o, torch.sub, reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, torch.mul)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, torch.true_divide)
+
+    def __rtruediv__(self, o):
+        return self._binary(o, torch.true_divide, reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, torch.pow)
+
+    def __rpow__(self, o):
+        return self._binary(o, torch.pow, reverse=True)
+
+    def __neg__(self):
+        return self.map_blocks(torch.neg)
+
+    def map_blocks(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                   pad: Optional[PadState] = None) -> "DsArray":
+        """Apply an elementwise function to every block.  The pad state comes
+        from running ``fn`` on the pad constant; non-elementwise fns pass
+        ``pad=`` explicitly (``PAD_DIRTY`` when unknown)."""
+        out = fn(self.blocks)
+        if out.shape != self.blocks.shape:
+            raise ValueError("map_blocks must preserve block shapes")
+        if pad is None:
+            pad = _probe_map_pad(fn, self.pad_state, self.dtype)
+        return DsArray(out, self.grid, pad)
+
+    def astype(self, dtype: torch.dtype) -> "DsArray":
+        pad = self.pad_state
+        if pad.kind == "fill":
+            # the physical pad is cast too; re-derive the constant the same way
+            pad = pad_state_of(torch.tensor(pad.fill, dtype=self.dtype).to(dtype))
+        return DsArray(self.blocks.to(dtype), self.grid, pad)
+
+    # -- structural ops ---------------------------------------------------------
+    def transpose(self) -> "DsArray":
+        """Paper §5.2: per-block transpose + block-grid permutation.  Returns
+        a permuted VIEW of the stacked tensor (no copy); the GEMM kernel
+        reads it through its strides."""
+        out = self.blocks.permute(1, 0, 3, 2)
+        return DsArray(out, self.grid.transpose(), self.pad_state)
+
+    def _pad_grid_to(self, stacked_grid: Tuple[int, int]) -> "DsArray":
+        gn, gm = self.stacked_grid
+        tn, tm = stacked_grid
+        if (tn, tm) == (gn, gm):
+            return self
+        if tn < gn or tm < gm:
+            raise ValueError("can only grow the stacked grid")
+        # grow with the array's own pad constant so the pad state survives
+        cv = 0 if self.pad_state.kind != "fill" else self.pad_state.fill
+        out = torch.full((tn, tm) + tuple(self.blocks.shape[2:]), cv,
+                         dtype=self.dtype, device=self.device)
+        out[:gn, :gm] = self.blocks
+        return DsArray(out, self.grid, self.pad_state)
+
+    def rechunk(self, block_shape: Tuple[int, int]) -> "DsArray":
+        """Re-block to a new block size without a global ``(n, m)`` tensor
+        (see ``core.structural.rechunk``)."""
+        from repro_torch.core import structural
+        return structural.rechunk(self, tuple(block_shape))
+
+    def __matmul__(self, other: "DsArray") -> "DsArray":
+        """Blocked matmul: C[i,j] = sum_k A[i,k] @ B[k,j], one launch of the
+        stacked GEMM over (grid-k, block-k).  Zero pads on both operands make
+        the padded contraction exact, so the result pad is zero."""
+        from repro_torch.kernels.matmul.ops import local_matmul
+        if not isinstance(other, DsArray):
+            return NotImplemented
+        if self.shape[1] != other.shape[0]:
+            raise ValueError(f"matmul shape mismatch {self.shape} @ {other.shape}")
+        if self.block_shape[1] != other.block_shape[0]:
+            other = other.rechunk((self.block_shape[1], other.block_shape[1]))
+        if self.stacked_grid[1] != other.stacked_grid[0]:
+            k = max(self.stacked_grid[1], other.stacked_grid[0])
+            a = self._pad_grid_to((self.stacked_grid[0], k))
+            b = other._pad_grid_to((k, other.stacked_grid[1]))
+        else:
+            a, b = self, other
+        a, b = a.ensure_zero_pad(), b.ensure_zero_pad()
+        out = local_matmul(a.blocks, b.blocks,
+                           out_dtype=torch.promote_types(a.dtype, b.dtype))
+        grid = BlockGrid((self.shape[0], other.shape[1]),
+                         (self.block_shape[0], other.block_shape[1]))
+        return DsArray(out, grid, PAD_ZERO)
+
+    # -- reductions ---------------------------------------------------------
+    def _reduce(self, op: str, axis: Optional[int]):
+        integral = not (self.dtype.is_floating_point or self.dtype.is_complex)
+        if integral and self.dtype != torch.bool:
+            info = torch.iinfo(self.dtype)
+            fill = {"sum": 0, "max": int(info.min), "min": int(info.max)}[op]
+        else:
+            fill = {"sum": 0, "max": -float("inf"), "min": float("inf")}[op]
+        # refill only when the pad is not already the reduction identity
+        ps = self.pad_state
+        if (ps.kind == "zero" and fill == 0) or \
+                (ps.kind == "fill" and ps.fill == fill):
+            x = self.blocks
+        else:
+            x = self._remask(fill)
+        if op == "sum":
+            # 32-bit integer accumulators, as the reference's sums
+            acc = torch.int32 if integral else None
+            red = lambda t, dims=None: (t.sum(dtype=acc) if dims is None
+                                        else t.sum(dim=dims, dtype=acc))
+        else:
+            f = torch.amax if op == "max" else torch.amin
+            red = lambda t, dims=None: f(t) if dims is None else f(t, dim=dims)
+        if axis is None:
+            return red(x)
+        if axis == 0:
+            # paper Fig. 5: one task per column of blocks
+            out = red(x, (0, 2))  # (gm, bm)
+            gm, bm = out.shape
+            blocks = out.reshape(1, gm, 1, bm)
+            grid = BlockGrid((1, self.shape[1]), (1, bm))
+        elif axis == 1:
+            out = red(x, (1, 3))  # (gn, bn)
+            gn, bn = out.shape
+            blocks = out.reshape(gn, 1, bn, 1)
+            grid = BlockGrid((self.shape[0], 1), (bn, 1))
+        else:
+            raise ValueError(f"axis must be 0, 1 or None, got {axis}")
+        # pad lines of the result reduce over identity-only values
+        return DsArray(blocks, grid, pad_state_of(fill))
+
+    def sum(self, axis: Optional[int] = None):
+        return self._reduce("sum", axis)
+
+    def max(self, axis: Optional[int] = None):
+        return self._reduce("max", axis)
+
+    def min(self, axis: Optional[int] = None):
+        return self._reduce("min", axis)
+
+    def mean(self, axis: Optional[int] = None):
+        n, m = self.shape
+        denom = {None: n * m, 0: n, 1: m}[axis]
+        me = self
+        if not self.dtype.is_floating_point:
+            # promote BEFORE summing: an integer accumulator overflows
+            me = self.astype(torch.promote_types(self.dtype, torch.float32))
+        s = me.sum(axis)
+        if isinstance(s, DsArray):
+            return s / float(denom)
+        return s / denom
+
+    def norm(self, axis: Optional[int] = None):
+        """Euclidean norm of all elements (``axis=None``)."""
+        if axis is not None:
+            raise NotImplementedError(
+                "norm(axis=...) needs apply_along_axis, not ported yet")
+        sq = self._binary(self, torch.mul)  # x*x keeps pad zero
+        return torch.sqrt(sq.sum())
+
+    # -- indexing ------------------------------------------------------------
+    def __getitem__(self, key) -> "DsArray":
+        """NumPy-style indexing returning a new ds-array (paper §4.2.3):
+        ``A[r]``, ``A[r0:r1]``, ``A[r0:r1, c0:c1]``, integer rows/cols and
+        integer-array row selection, lowered to block-native ops."""
+        from repro_torch.core import structural
+        return structural.getitem(self, key)
+
+
+# ---------------------------------------------------------------------------
+# Derived block-native routines
+# ---------------------------------------------------------------------------
+
+
+def matmul_ta(a: DsArray, b: DsArray) -> DsArray:
+    """``Aᵀ @ B`` with the transpose folded into the GEMM: ``a`` stays in its
+    untransposed stacked layout and ``local_matmul`` reads it transposed."""
+    from repro_torch.core import structural
+    from repro_torch.kernels.matmul.ops import local_matmul
+    if not isinstance(b, DsArray):
+        raise TypeError("matmul_ta wants DsArray operands")
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"matmul_ta shape mismatch {a.shape}ᵀ @ {b.shape}")
+    if a.block_shape[0] != b.block_shape[0]:
+        b = structural.rechunk(b, (a.block_shape[0], b.block_shape[1]))
+    if a.stacked_grid[0] != b.stacked_grid[0]:
+        k = max(a.stacked_grid[0], b.stacked_grid[0])
+        a = a._pad_grid_to((k, a.stacked_grid[1]))
+        b = b._pad_grid_to((k, b.stacked_grid[1]))
+    a, b = a.ensure_zero_pad(), b.ensure_zero_pad()
+    out = local_matmul(a.blocks, b.blocks,
+                       out_dtype=torch.promote_types(a.dtype, b.dtype),
+                       transpose_a=True)
+    grid = BlockGrid((a.shape[1], b.shape[1]),
+                     (a.block_shape[1], b.block_shape[1]))
+    return DsArray(out, grid, PAD_ZERO)
+
+
+# ---------------------------------------------------------------------------
+# Creation routines (paper §4.2.2)
+# ---------------------------------------------------------------------------
+
+
+def from_array(arr, block_shape: Tuple[int, int], device="cuda") -> DsArray:
+    """Block a local 2-D array (NumPy or torch) into a ds-array on ``device``."""
+    dev = resolve_device(device)
+    t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(np.asarray(arr))
+    t = t.to(device=dev, dtype=_NARROW.get(t.dtype, t.dtype))
+    if t.ndim == 1:
+        t = t.reshape(-1, 1)
+    if t.ndim != 2:
+        raise ValueError(f"ds-arrays are 2-D, got shape {tuple(t.shape)}")
+    grid = BlockGrid(tuple(t.shape), tuple(block_shape))
+    (gn, gm), (bn, bm) = grid.grid, grid.block_shape
+    pn, pm = grid.padded_shape
+    padded = torch.zeros((pn, pm), dtype=t.dtype, device=dev)
+    padded[:t.shape[0], :t.shape[1]] = t
+    blocks = padded.reshape(gn, bn, gm, bm).permute(0, 2, 1, 3).contiguous()
+    return DsArray(blocks, grid)
+
+
+def zeros(shape: Tuple[int, int], block_shape: Tuple[int, int],
+          dtype=torch.float32, device="cuda") -> DsArray:
+    grid = BlockGrid(tuple(shape), tuple(block_shape))
+    return DsArray(torch.zeros(grid.stacked_shape, dtype=dtype,
+                               device=resolve_device(device)), grid)
+
+
+def full(shape, block_shape, fill_value, dtype=torch.float32,
+         device="cuda") -> DsArray:
+    grid = BlockGrid(tuple(shape), tuple(block_shape))
+    blocks = torch.full(grid.stacked_shape, fill_value, dtype=dtype,
+                        device=resolve_device(device))
+    return DsArray(blocks, grid, pad_state_of(blocks.reshape(-1)[0]))
+
+
+def eye(n: int, block_shape: Tuple[int, int], dtype=torch.float32,
+        device="cuda") -> DsArray:
+    dev = resolve_device(device)
+    grid = BlockGrid((n, n), tuple(block_shape))
+    gn, gm, bn, bm = grid.stacked_shape
+    row = torch.arange(gn * bn, device=dev).reshape(gn, 1, bn, 1)
+    col = torch.arange(gm * bm, device=dev).reshape(1, gm, 1, bm)
+    blocks = ((row == col) & (row < n)).to(dtype)
+    return DsArray(blocks, grid)
+
+
+def random_array(generator: torch.Generator, shape: Tuple[int, int],
+                 block_shape: Tuple[int, int], dtype=torch.float32,
+                 distribution: str = "uniform", device="cuda") -> DsArray:
+    """Paper §4.2.2 ``random_array``: uniform [0, 1) or standard normal
+    values from ``generator`` (which must live on ``device``), pad zero.
+    Held to its distribution, not to the reference's random bits."""
+    dev = resolve_device(device)
+    grid = BlockGrid(tuple(shape), tuple(block_shape))
+    sampler = {"uniform": torch.rand, "normal": torch.randn}[distribution]
+    blocks = sampler(grid.stacked_shape, generator=generator, dtype=dtype,
+                     device=dev)
+    res = DsArray(blocks, grid)
+    return res._with_blocks(res._remask())

@@ -1,0 +1,69 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and it
+never lands on the CPU unless the caller names the CPU."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as pt  # noqa: E402
+
+pytestmark = pytest.mark.torch_port
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[ .])")
+
+_SCRIPT = """
+import sys
+import numpy as np
+import repro_torch as pt
+from repro_torch.algorithms import KMeans
+x = pt.from_array(np.random.default_rng(0).normal(size=(40, 3)), (16, 2),
+                  device="cpu")
+km = KMeans(n_clusters=2, max_iter=5).fit(x)
+km.predict(x)
+km.score(x)
+(x @ x.T).sum()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_have_no_jax_or_reference_imports():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if FORBIDDEN.match(line)]
+    assert not bad, bad
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    """Without ``device=`` the creation routines ask for the card; where
+    there is none they raise instead of landing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    arr = np.ones((4, 4), np.float32)
+    for make in (lambda: pt.from_array(arr, (2, 2)),
+                 lambda: pt.zeros((4, 4), (2, 2)),
+                 lambda: pt.full((4, 4), (2, 2), 1.0),
+                 lambda: pt.eye(4, (2, 2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
