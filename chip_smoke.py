@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the repro_torch main path once on one CUDA card, and check it.
+"""Drive the repro_torch main paths once on one CUDA card, and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,23 +8,57 @@ Run from the root of a checkout; the kernels are built from
 raises and the script exits non-zero):
 
 1. card and precision: the card, its power limit, the TF32 switches (off);
-2. build: both CUDA kernels, with the build seconds and ptxas' report;
+2. build: the four CUDA kernels (one nvcc each, in parallel), with the build
+   seconds and ptxas' report;
 3. kernel vs plain on the card: ``stacked_matmul`` in f32/bf16/f16, with
    ``transpose_a``, ragged blocks, a strided view, split-K, the 2-D entry and
    an int32 operand that must raise; ``kmeans_assign`` with ragged n,
-   gm > 1, k not a multiple of 8, and k·d past one block's shared memory
-   (centers staged in chunks, the partial in global scratch);
-4. the main path at a size K-means users run: 8,000,000 x 100 fp32 samples
-   in 64 Gaussian blobs, blocks (262,144 x 100): ``from_array`` ->
+   gm > 1, k not a multiple of 8, k·d past one block's shared memory
+   (centers staged in chunks, the partial in global scratch), rows of 2,560
+   and 4,096 features (the D-tiled layout), and the D-tiled layout forced on
+   narrow rows, whose labels must equal the whole-row layout's bit for bit,
+   and k = 2000 (the sums pass with its partial in global memory);
+   ``flash_attention`` on the cases of ``tests/test_kernels.py``, at the LM
+   path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16) and
+   decode shape (Tq = 1, kv_len < Tk); ``ssd_chunk`` + ``ssd_scan`` at the
+   LM path's shape (B·H = 160, T = 4096, L = 128, P = S = 64) with fast and
+   slow decay and ``h0``; each against a limit from its output's precision
+   and reduction depth that a zeroed output, attention without its causal
+   mask and an SSD without its inter-chunk term must fail;
+4. the ds-array main path at a size K-means users run: 8,000,000 x 100 fp32
+   samples in 64 Gaussian blobs, blocks (262,144 x 100): ``from_array`` ->
    ``mean(axis=0)`` -> ``matmul_ta(x, x)``; 8192² ``A @ B`` and
    ``matmul_ta(A, B)`` in f32 and bf16 with blocks (2048, 2048);
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` fit, predict and score.
    The launch counts are zeroed just before and read just after, and every
    result is checked against a plain or float64 version; a zeroed product
    and products of bf16- or TF32-rounded inputs must fail the GEMM check;
-5. times at the main path's shapes (median of 7 CUDA-event timed runs after
-   a warm-up) beside the bound the card's data sheet gives, and the main
-   path's wall times.
+5. times at that path's shapes (median of 7 CUDA-event timed runs after a
+   warm-up) beside the bound the card's data sheet gives, and its wall times;
+6. the LM path: zamba2-2.7b at its published widths (54 Mamba-2 layers, the
+   shared attention block after every 6), bf16, random weights from
+   ``--seed`` with every norm scale, ``conv_b`` and ``dt_bias`` redrawn (the
+   package's init, like the reference's, zeroes the norms, which makes every
+   Mamba layer the identity).  Each step below zeroes the launch counts
+   before and checks them after (9 attention and 54 SSD launches per
+   forward, 9 attention launches per decoded token):
+   ``forward`` on B = 2, T = 4096, its logits against the same forward with
+   the plain attention and SSD swapped in, then timed (median of 3 warm
+   runs); the float32 model at T = 64, ``decode_step`` teacher-forced
+   against ``forward``; ``serve.generate`` in float32 and with the bf16
+   weights, its tokens held to the argmax of a teacher-forced forward;
+   ``serve.main`` with four requests of 256 prompt and 64 new tokens (its
+   times: it draws its own weights, whose zero norms make every logit 0);
+   the composition: the
+   ``forward_hidden`` states of 16 batches of (2, 4096) tokens (131,072 x
+   2,560 fp32) as a ds-array with blocks (8192, 2560), clustered by
+   ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` through the D-tiled
+   ``kmeans_assign``;
+7. times of ``flash_attention``, ``ssd_chunk`` and the D-tiled
+   ``kmeans_assign`` at the LM path's shapes (the SSD chunk's bound counts
+   the causal half of its L x L products), the LM path's wall times, and a
+   ``torch.profiler`` breakdown (device time by kernel group, the device's
+   busy share) of one forward, 8 decode steps and one D-tiled assign.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card
@@ -60,6 +94,23 @@ GEMM_ERRS = 8
 # the rows may be such near-ties
 GAP_ERRS = 4
 NEAR_TIE_SHARE = 1e-4
+
+# the LM path
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH, LM_SEQ = 2, 4096
+DECODE_SEQ = 64
+DECODE_TOL = 5e-3          # decode vs teacher forcing (tests/test_models.py)
+SERVE_ARGV = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "256",
+              "--gen", "64"]
+FORWARD_RUNS = 3           # warm forwards timed after the checked one
+GEN32_PROMPT, GEN32_NEW = 16, 32               # serve.generate, float32 check
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 32, 64     # serve.generate, bf16 weights
+BF16_AGREE = 0.5           # least share of bf16 tokens equal to the forward's argmax
+TOP_ERRS = 16              # bf16 token's logit: at most this x E below the best
+HIDDEN_BATCHES = 16
+HIDDEN_BLOCK = (8192, 2560)
+LM_CLUSTERS = 64
+ATTN_PER_FORWARD, SSD_PER_FORWARD = 9, 54
 
 
 def check(cond, msg: str) -> None:
@@ -189,6 +240,212 @@ def stacked_rows(blocks, n):
     return blocks.permute(0, 2, 1, 3).reshape(gn * bn, gm * bm)[:n]
 
 
+def bad_count(out, ref, limit) -> int:
+    return int(((out.double() - ref.double()).abs() > limit).sum())
+
+
+def attn_limit(q, k, v, kw, ref):
+    """Per element of an attention output: (u_v + GEMM_ERRS·eps32·√(Tk + D))
+    · A + eps_out·|ref|, where A = Σ p|v| / Σ p is the same attention of |v|:
+    P rounded to V's dtype before P·V (unit roundoff u_v of each term), the
+    fp32 error of the depth-D scores and depth-Tk sums taken in another
+    order, and one unit in the last place of the output type."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    mag = attention_ref(q.float(), k.float(), v.float().abs(), **kw).double()
+    eps32 = torch.finfo(torch.float32).eps
+    u_v = torch.finfo(v.dtype).eps / 2
+    depth = k.shape[2] + q.shape[3]
+    return ((u_v + GEMM_ERRS * eps32 * depth ** 0.5) * mag
+            + torch.finfo(q.dtype).eps * ref.double().abs())
+
+
+def attn_check(out, q, k, v, kw, what: str, causal_control: bool = False):
+    """``out`` against the plain attention within ``attn_limit``; a zeroed
+    output (and, for causal attention, the same attention without its
+    causal mask) must fail that limit.  Returns the max abs error."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    ref = attention_ref(q, k, v, **kw)
+    limit = attn_limit(q, k, v, kw, ref)
+    bad = bad_count(out, ref, limit)
+    check(bad == 0, f"{what}: {bad} elements beyond the attention limit")
+    err = float((out.double() - ref.double()).abs().max())
+    controls = {"zeroed output": bad_count(0 * ref, ref, limit)}
+    if causal_control:
+        open_kw = dict(kw, causal=False)
+        controls["no causal mask"] = bad_count(attention_ref(q, k, v, **open_kw),
+                                               ref, limit)
+    for name, n in controls.items():
+        check(n > 0, f"{what}: control '{name}' passed the attention limit")
+    print(f"[3] {what}: max abs err {err:.3e}; controls fail at "
+          f"{controls} of {ref.numel()} elements")
+    return err
+
+
+class plain_kernels:
+    """Within the block, the models and ``ssd_scan`` run the plain attention
+    and the plain SSD chunk instead of the CUDA kernels (the package has no
+    such switch: the script patches the two entries it calls)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.kernels.ssd import ops as sops
+        from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+        from repro_torch.models import common as cm
+        self.saved = (cm.flash_attention, sops.ssd_chunk)
+        cm.flash_attention = fref.attention_ref
+        sops.ssd_chunk = ssd_chunk_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ssd import ops as sops
+        from repro_torch.models import common as cm
+        cm.flash_attention, sops.ssd_chunk = self.saved
+        return False
+
+
+class forced_plan:
+    """Within the block, ``kmeans_assign_stacked`` lays out every call as
+    ``plan`` (the script patches ``launch_plan``; the package has no such
+    option)."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def __enter__(self):
+        from repro_torch.kernels.kmeans import kernel as kk
+        self.saved = kk.launch_plan
+        kk.launch_plan = lambda *args: self.plan
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.kmeans import kernel as kk
+        kk.launch_plan = self.saved
+        return False
+
+
+def ssd_without_inter(x, dt, a, b, c, h0=None, *, chunk):
+    """``ssd_scan`` with its inter-chunk term dropped (a control): y_intra
+    of the plain chunk, and the last chunk's own state."""
+    import torch
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    t = x.shape[1]
+    pad = -t % chunk
+    x, b, c = (torch.nn.functional.pad(m, (0, 0, 0, pad)) for m in (x, b, c))
+    y, states, _, _ = ssd_chunk_ref(x, torch.nn.functional.pad(dt, (0, pad)), a,
+                                    b, c, chunk=chunk)
+    return y[:, :t], states[:, -1]
+
+
+def ssd_check(args, chunk: int, what: str):
+    """``ssd_scan`` through the kernel against the same scan with the plain
+    chunk, per element within (GEMM_ERRS + 2·L·Λ)·eps32·A + eps32·|ref|.  A
+    is the same scan of |x|, |B|, |C|, |h0|: the sum of the magnitudes of
+    the terms.  Λ is the largest |ℓ| of a chunk: ℓ is a cumsum of L terms of
+    one sign, so a sum in any order is within (L-1)·u·Λ of it, and each gate
+    exp(ℓ_t − ℓ_s) or exp(ℓ_t), on either side, within a relative L·eps·Λ
+    (the kernel adds in sequence, torch.cumsum on the card in another
+    order).  A zeroed output and the scan without its inter-chunk term must
+    fail.  Returns (max abs err of y, of h_final)."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    x, dt, a, b, c, h0 = args
+    before = sk.ssd_chunk.launches
+    y, h = ssd_scan(*args, chunk=chunk)
+    check(sk.ssd_chunk.launches == before + 1, f"{what}: ssd_chunk did not launch")
+    with plain_kernels():
+        y_ref, h_ref = ssd_scan(*args, chunk=chunk)
+        mag_y, mag_h = ssd_scan(x.abs(), dt, a, b.abs(), c.abs(), h0.abs(),
+                                chunk=chunk)
+    eps32 = torch.finfo(torch.float32).eps
+    bh, t = dt.shape
+    lam = float((-a[:, None] * torch.nn.functional.pad(dt, (0, -t % chunk))
+                 .reshape(bh, -1, chunk).sum(-1)).max())
+    rel = (GEMM_ERRS + 2 * chunk * lam) * eps32
+    lim_y = rel * mag_y.double() + eps32 * y_ref.double().abs()
+    lim_h = rel * mag_h.double() + eps32 * h_ref.double().abs()
+    bad = bad_count(y, y_ref, lim_y) + bad_count(h, h_ref, lim_h)
+    check(bad == 0, f"{what}: {bad} elements beyond the SSD limit")
+    y_intra, _ = ssd_without_inter(x, dt, a, b, c, h0, chunk=chunk)
+    controls = {"zeroed output": bad_count(0 * y_ref, y_ref, lim_y),
+                "no inter-chunk term": bad_count(y_intra, y_ref, lim_y)}
+    for name, n in controls.items():
+        check(n > 0, f"{what}: control '{name}' passed the SSD limit")
+    errs = (float((y - y_ref).abs().max()), float((h - h_ref).abs().max()))
+    print(f"[3] {what}: Λ = {lam:.1f}; max abs err y {errs[0]:.3e}, h "
+          f"{errs[1]:.3e}; controls fail at {controls} of {y_ref.numel()}")
+    return errs
+
+
+def ssd_inputs(torch, gen, bh, bg, t, p, s, slow: bool):
+    """Random SSD inputs: slow decay (dt in [0.001, 0.1], a in [-2, -0.5]) or
+    the fast decay of zamba2's init (dt in [0.5, 1], a in [-16, -1])."""
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+    x = torch.randn((bh, t, p), generator=gen, device="cuda")
+    dt = u(0.001, 0.1, bh, t) if slow else u(0.5, 1.0, bh, t)
+    a = -(u(0.5, 2.0, bh) if slow else u(1.0, 16.0, bh))
+    b = torch.randn((bg, t, s), generator=gen, device="cuda")
+    c = torch.randn((bg, t, s), generator=gen, device="cuda")
+    h0 = torch.randn((bh, s, p), generator=gen, device="cuda")
+    return x, dt, a, b, c, h0
+
+
+def redraw_norms(params, gen) -> None:
+    """In place: norm scales around 1 (``norm``, ``gate_norm``,
+    ``final_norm``) and 0 (the ``plus_one`` norms ``ln1``, ``ln2``),
+    ``conv_b`` around 0 and ``dt_bias`` as Mamba-2 draws it
+    (softplus(dt_bias) log-uniform in [1e-3, 1e-1])."""
+    import math
+    import torch
+
+    def around(t, centre):
+        t.copy_(centre + 0.1 * torch.randn(t.shape, generator=gen, device=t.device))
+
+    layers, shared = params["layers"], params["shared"]
+    for t, centre in ((layers["norm"], 1.0), (layers["gate_norm"], 1.0),
+                      (layers["conv_b"], 0.0), (params["final_norm"], 1.0),
+                      (shared["ln1"], 0.0), (shared["ln2"], 0.0)):
+        around(t, centre)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(layers["dt_bias"].shape,
+                                               generator=gen, device="cuda"))
+    layers["dt_bias"].copy_(torch.log(torch.expm1(dt)))
+
+
+def teacher_forced(model, params, prompt, got):
+    """float32 logits of a forward over the prompt and all but the last of
+    the generated tokens ``got``, at the positions that chose ``got``."""
+    import torch
+    logits, _ = model.forward(params, torch.cat([prompt, got[:, :-1]], dim=1))
+    return logits[:, prompt.shape[1] - 1:].float()
+
+
+def lm_kernels():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.ssd import kernel as sk
+    return {"flash_attention": fk.flash_attention, "ssd_chunk": sk.ssd_chunk,
+            "kmeans_assign": kk.kmeans_assign_stacked}
+
+
+def zero_counts() -> None:
+    for fn in lm_kernels().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in lm_kernels().items()}
+
+
+def expect_counts(got, want, what: str) -> None:
+    for name, n in want.items():
+        check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
+                              f"the path implies {n}")
+    print(f"[6] {what}: launches {got}", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -279,7 +536,10 @@ def phase_kernels(torch, gen):
                                  (4, 2, 512, 392, 2000, 10),      # 32-row tiles
                                  (3, 1, 700, 1000, 1900, 16),     # 8-center chunks
                                  (3, 7, 1000, 112, 2500, 64),     # global partial
-                                 (4, 1, 1024, 64, 4000, 1000)]:   # many clusters
+                                 (4, 1, 1024, 64, 4000, 1000),    # many clusters
+                                 (4, 1, 1024, 2560, 4000, 64),    # D-tiled
+                                 (3, 4, 700, 1024, 2000, 17),     # D-tiled, 4096
+                                 (3, 1, 1000, 40, 3000, 2000)]:   # global sums pass
         x = rnd(gn, gm, bn, bm)
         valid = torch.arange(gn * bn, device="cuda").reshape(gn, 1, bn, 1) < n
         x = (x * valid).contiguous()
@@ -294,6 +554,99 @@ def phase_kernels(torch, gen):
         plan = kk.launch_plan(lib, k, gm * bm, 0)
         print(f"[3] kmeans_assign {(gn, gm, bn, bm)} n={n} k={k} {plan}: labels "
               f"differ at {near} near-ties, sums max abs err {serr:.3e}")
+    # the D-tiled layout sums each distance in the whole-row layout's order
+    for gn, gm, bn, bm, n, k in [(4, 1, 1024, 100, 4000, 64), (3, 2, 512, 392, 1500, 10)]:
+        x = rnd(gn, gm, bn, bm)
+        c = rnd(k, gm * bm) * 0.5
+        whole = kk.launch_plan(lib, k, gm * bm, 0)
+        l1, _, c1 = kk.kmeans_assign_stacked(x, c, n)
+        for ds in (256, 32):
+            tiled = kk.Plan(kk.DTILED_ROWS, min(whole.chunk, kk.DTILED_CHUNK), False, ds)
+            with forced_plan(tiled):
+                l2, _, c2 = kk.kmeans_assign_stacked(x, c, n)
+            same = bool((l1 == l2).all()) and bool((c1 == c2).all())
+            check(same, f"kmeans_assign {tiled} labels differ from {whole}")
+        print(f"[3] kmeans_assign d={gm * bm} k={k}: the D-tiled layout (slices of "
+              f"256 and 32) gives {whole}'s labels and counts bit for bit")
+    sys.stdout.flush()
+
+
+FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff (tests/test_kernels.py)
+    (128, 128, 4, 2, 64, True, 0, 0.0, 0),
+    (100, 100, 4, 4, 48, True, 0, 0.0, 0),
+    (64, 256, 2, 1, 64, True, 0, 0.0, 192),
+    (128, 128, 8, 2, 64, True, 64, 0.0, 0),
+    (128, 128, 4, 2, 64, True, 0, 30.0, 0),
+    (96, 160, 4, 2, 64, False, 0, 0.0, 0),
+    (1, 300, 4, 2, 64, True, 0, 0.0, 299),
+    (256, 512, 2, 2, 128, True, 128, 50.0, 0),
+]
+
+
+def phase_lm_kernels(torch, gen):
+    """Phase 3 (continued): the LM path's kernels against their plain
+    versions, at the test cases and at the path's shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def attn(q, k, v, what, **kw):
+        kw = dict(dict(causal=True, window=0, softcap=0.0, q_offset=0), **kw,
+                  sm_scale=q.shape[-1] ** -0.5)
+        before = fk.flash_attention.launches
+        out = fk.flash_attention(q, k, v, **kw)
+        check(fk.flash_attention.launches == before + 1, f"{what} did not launch")
+        torch.cuda.synchronize()
+        # the causal mask hides a key from the first query (at q_offset)
+        hides = kw["causal"] and kw["q_offset"] < k.shape[2] - 1
+        return attn_check(out, q, k, v, kw, what, causal_control=hides)
+
+    for tq, tk, hq, hkv, d, causal, window, cap, qoff in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            attn(rnd(2, hq, tq, d, dtype=dt), rnd(2, hkv, tk, d, dtype=dt),
+                 rnd(2, hkv, tk, d, dtype=dt),
+                 f"flash_attention {(tq, tk, hq, hkv, d)} causal={causal} "
+                 f"window={window} cap={cap} qoff={qoff} {dt}",
+                 causal=causal, window=window, softcap=cap, q_offset=qoff)
+    # the prefill shape, as the model passes it: (B, T, H, D) -> (B, H, T, D) views
+    bf16 = torch.bfloat16
+    qkv = rnd(3, LM_BATCH, LM_SEQ, 32, 80, dtype=bf16)
+    q, k, v = (qkv[i].transpose(1, 2) for i in range(3))
+    attn(q, k, v, f"flash_attention prefill {tuple(q.shape)} bf16, strided views")
+    del qkv, q, k, v
+    # the decode shape: one query against a cache of 320 slots, 300 written
+    q, k, v = rnd(4, 32, 1, 80, dtype=bf16), rnd(4, 32, 320, 80, dtype=bf16), \
+        rnd(4, 32, 320, 80, dtype=bf16)
+    attn(q, k, v, "flash_attention decode (4, 32, 1, 80) kv_len=300 of 320 bf16",
+         causal=False, kv_len=300)
+    # int inputs raise on the card, never fall back
+    ints = torch.ones((1, 1, 4, 8), dtype=torch.int32, device="cuda")
+    try:
+        fk.flash_attention(ints, ints, ints, causal=True, window=0, softcap=0.0,
+                           sm_scale=1.0)
+    except TypeError as exc:
+        print(f"[3] int32 attention on the card raises: {exc}")
+    else:
+        raise RuntimeError("chip_smoke check failed: int32 attention did not raise")
+
+    for bh, bg, t, chunk, slow, with_h0 in [(160, 2, LM_SEQ, 128, False, True),
+                                            (160, 2, LM_SEQ, 128, True, True),
+                                            (6, 2, 300, 64, True, False),
+                                            (4, 4, 256, 64, True, True)]:
+        x, dt, a, b, c, h0 = ssd_inputs(torch, gen, bh, bg, t, 64 if bh > 8 else 32,
+                                        64 if bh > 8 else 16, slow)
+        ssd_check((x, dt, a, b, c, h0 if with_h0 else torch.zeros_like(h0)), chunk,
+                  f"ssd_scan BH={bh} (B, C per {bh // bg} heads) T={t} L={chunk} "
+                  f"P={x.shape[2]} S={b.shape[2]} {'slow' if slow else 'fast'} "
+                  f"decay, h0 {'drawn' if with_h0 else 'zero'}")
+    try:
+        sk.ssd_chunk(x.bfloat16(), dt, a, b, c, chunk=64)
+    except TypeError as exc:
+        print(f"[3] bf16 ssd_chunk on the card raises: {exc}")
+    else:
+        raise RuntimeError("chip_smoke check failed: bf16 ssd_chunk did not raise")
     sys.stdout.flush()
 
 
@@ -519,6 +872,428 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
     ]
 
 
+KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel")),
+                 ("ssd_chunk", ("ssd_chunk_kernel",)),
+                 ("kmeans_assign", ("kmeans_",)),
+                 ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
+
+
+def device_profile(torch, fn, what: str):
+    """Runs ``fn`` once under ``torch.profiler`` and prints the device time
+    of its kernels by group (the port's kernels, cuBLAS, the rest of the
+    torch ops), the top kernels, and the device's busy share of the
+    window's host-clock time; returns the summary.  A trace without device
+    time prints 'not measured'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a first kernel and a sync, so the trace is live before the window
+        # (kernels launched right after the profiler starts can go unseen)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, _, ms in kernels)
+    if not kernels:
+        print(f"[7] profile {what}: the profiler recorded no device time: not measured")
+        return {"what": what, "wall_ms": wall_ms, "busy_ms": None}
+    groups = {}
+    for name, count, ms in kernels:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(key in name for key in keys)), "other torch ops")
+        n, t = groups.get(group, (0, 0.0))
+        groups[group] = (n + count, t + ms)
+    top = sorted(kernels, key=lambda k: -k[2])[:6]
+    print(f"[7] profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
+          f"device busy {busy:.3f} ms ({busy / wall_ms:.3f} of it); by group: "
+          + "; ".join(f"{g} {t:.3f} ms in {n} launches" for g, (n, t) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][1])), flush=True)
+    for name, count, ms in top:
+        print(f"[7]   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
+    return {"what": what, "wall_ms": wall_ms, "busy_ms": busy,
+            "groups": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()}}
+
+
+def lm_path(torch, gen):
+    """Phase 6: the LM path at zamba2-2.7b's published widths, each step
+    with its launch counts zeroed before and checked after."""
+    import dataclasses
+    import repro_torch as rt
+    from repro_torch.algorithms import KMeans
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import hybrid
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import tracing
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    wall, launches = {}, {}
+    per_fwd = {"flash_attention": ATTN_PER_FORWARD, "ssd_chunk": SSD_PER_FORWARD}
+    with torch.inference_mode():
+        params = model.init(gen, "cuda")
+        redraw_norms(params, gen)
+        n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen,
+                               device="cuda")
+        torch.cuda.synchronize()
+        print(f"[6] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} Mamba-2 "
+              f"layers, d_model {cfg.d_model}", flush=True)
+
+        # forward through the kernels
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        wall["forward_first_s"] = time.perf_counter() - t0
+        launches["forward"] = read_counts()
+        expect_counts(launches["forward"], per_fwd, f"forward {tuple(tokens.shape)}")
+        check(bool(torch.isfinite(logits).all()), "forward logits not finite")
+        # the same forward with the plain versions.  Limit: a bf16 forward
+        # lies about E = rms(plain bf16 - float32 model) from the float32
+        # model, and two such forwards at most 2E from each other (a rounding
+        # difference anywhere is amplified over 54 layers, so the kernels'
+        # own error is not the scale: the bf16 model's is)
+        with plain_kernels():
+            plain, _ = model.forward(params, tokens)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            model32 = build_model(cfg32)
+            params32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
+            exact, _ = model32.forward(params32, tokens)
+            saved = ssm_mod.ssd_scan
+            ssm_mod.ssd_scan = lambda *a, **kw: ssd_without_inter(*a, **kw)
+            try:
+                no_inter, _ = model.forward(params, tokens)
+            finally:
+                ssm_mod.ssd_scan = saved
+
+        def rms(t):
+            return float(t.double().pow(2).mean().sqrt())
+
+        err = rms(logits - plain)
+        own = rms(plain - exact)
+        limit = 2 * own
+        controls = {"zeroed logits": rms(plain), "no inter-chunk term": rms(no_inter - plain)}
+        agree = float((logits.argmax(-1) == plain.argmax(-1)).double().mean())
+        check(err <= limit, f"forward logits rms err {err} vs the plain forward, "
+                            f"beyond 2 x the bf16 model's own {own}")
+        for name, val in controls.items():
+            check(val > limit, f"control '{name}' ({val}) passed the logits limit")
+        print(f"[6] forward logits vs plain: rms err {err:.4e} (limit 2 x {own:.4e}, the "
+              f"plain bf16 forward vs the float32 model; the kernels' forward vs the "
+              f"float32 model {rms(logits - exact):.4e}; logits rms {rms(plain):.4e}); "
+              f"argmax agrees at {agree:.6f} of positions; controls {controls}",
+              flush=True)
+        del logits, plain, exact, no_inter
+        # the forward's time: median of warm runs (the first, above, is cold)
+        runs = []
+        for _ in range(FORWARD_RUNS):
+            t0 = time.perf_counter()
+            model.forward(params, tokens)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        wall["forward_runs_s"] = runs
+        wall["forward_s"] = statistics.median(runs)
+        wall["forward_tok_per_s"] = LM_BATCH * LM_SEQ / wall["forward_s"]
+
+        # float32 at the same widths: decode teacher-forced against forward
+        zero_counts()
+        short = tokens[:, :DECODE_SEQ]
+        full, _ = model32.forward(params32, short)
+        cache = model32.init_cache(LM_BATCH, DECODE_SEQ, device="cuda")
+        derr = 0.0
+        for i in range(DECODE_SEQ):
+            lg, cache = model32.decode_step(params32, cache, short[:, i:i + 1])
+            derr = max(derr, float((lg[:, 0] - full[:, i]).abs().max()))
+        launches["decode_f32"] = read_counts()
+        expect_counts(launches["decode_f32"],
+                      {"flash_attention": ATTN_PER_FORWARD * (1 + DECODE_SEQ),
+                       "ssd_chunk": SSD_PER_FORWARD},
+                      f"float32 forward + {DECODE_SEQ} decode steps")
+        check(derr < DECODE_TOL, f"decode vs teacher forcing: {derr}")
+        print(f"[6] float32 decode vs teacher forcing over {DECODE_SEQ} tokens: max "
+              f"abs err {derr:.3e} (limit {DECODE_TOL}; logits rms "
+              f"{rms(full):.3e})", flush=True)
+        del full, cache
+
+        # serve.generate on the card, float32: every token the argmax of the
+        # teacher-forced forward, except where that forward's top two logits
+        # lie within 2 x DECODE_TOL (decode may then pick either)
+        zero_counts()
+        prompt = short[:, :GEN32_PROMPT]
+        got, _ = serve.generate(model32, params32, prompt, GEN32_NEW)
+        launches["generate_f32"] = read_counts()
+        expect_counts(launches["generate_f32"],
+                      {"flash_attention": ATTN_PER_FORWARD * (GEN32_PROMPT + GEN32_NEW - 1),
+                       "ssd_chunk": 0}, f"float32 serve.generate {tuple(prompt.shape)} "
+                                        f"+ {GEN32_NEW}")
+        want = teacher_forced(model32, params32, prompt, got)
+        top2 = want.topk(2, dim=-1).values
+        clear = top2[..., 0] - top2[..., 1] >= 2 * DECODE_TOL
+        best = want.argmax(-1)
+        wrong = int(((got != best) & clear).sum())
+        zeros = int(((best != 0) & clear).sum())
+        check(wrong == 0, f"float32 serve.generate: {wrong} tokens are not the argmax")
+        check(float(clear.float().mean()) >= 0.5, "float32 serve.generate: too many "
+                                                   "near-ties to check")
+        check(zeros > 0, "control 'all tokens 0' passed the float32 generate check")
+        print(f"[6] float32 serve.generate {tuple(prompt.shape)} + {GEN32_NEW}: tokens "
+              f"equal the teacher-forced argmax at all {int(clear.sum())} of "
+              f"{clear.numel()} positions without a near-tie (top-2 gap < "
+              f"{2 * DECODE_TOL}); control 'all tokens 0' fails at {zeros}", flush=True)
+
+        # serve.generate with the bf16 weights: bf16 rounding alone flips the
+        # argmax at about 1 in 9 positions (the kernels' forward against the
+        # plain one, above), so the tokens are held to a share of the bf16
+        # teacher-forced argmax, and each to lie within TOP_ERRS x the bf16
+        # forward's rms distance from the float32 model below that model's
+        # best logit (a token drawn at random lies ~4 logit rms below it)
+        zero_counts()
+        prompt = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                               generator=gen, device="cuda")
+        got, _ = serve.generate(model, params, prompt, GEN_NEW)
+        launches["generate_bf16"] = read_counts()
+        expect_counts(launches["generate_bf16"],
+                      {"flash_attention": ATTN_PER_FORWARD * (GEN_PROMPT + GEN_NEW - 1),
+                       "ssd_chunk": 0}, f"bf16 serve.generate {tuple(prompt.shape)} "
+                                        f"+ {GEN_NEW}")
+        fwd = teacher_forced(model, params, prompt, got)
+        exact = teacher_forced(model32, params32, prompt, got)
+        tau = TOP_ERRS * rms(fwd - exact)
+        below = exact.max(-1).values - exact.gather(-1, got[..., None])[..., 0]
+        agree = float((got == fwd.argmax(-1)).double().mean())
+        zeros = float((fwd.argmax(-1) == 0).double().mean())
+        far = int((below > tau).sum())
+        check(far == 0, f"bf16 serve.generate: {far} tokens lie more than {tau} below "
+                        f"the float32 model's best logit")
+        check(agree >= BF16_AGREE, f"bf16 serve.generate agrees with the teacher-forced "
+                                   f"argmax at {agree} of positions")
+        check(zeros < BF16_AGREE, "control 'all tokens 0' passed the bf16 generate check")
+        print(f"[6] bf16 serve.generate {tuple(prompt.shape)} + {GEN_NEW}: tokens equal "
+              f"the bf16 teacher-forced argmax at {agree:.4f} of positions (limit "
+              f"{BF16_AGREE}); each within {float(below.max()):.4f} of the float32 "
+              f"model's best logit (limit {tau:.4f}); control 'all tokens 0' agrees "
+              f"at {zeros:.4f}", flush=True)
+        del params32, model32, fwd, exact, want
+
+    # the server, as a user runs it (times only: serve.main draws its own
+    # weights with the reference init, whose zero norms make every logit 0)
+    zero_counts()
+    served, times = serve.main(SERVE_ARGV)
+    launches["serve"] = read_counts()
+    n_req, n_prompt, n_gen = (int(SERVE_ARGV[i]) for i in (3, 5, 7))
+    expect_counts(launches["serve"],
+                  {"flash_attention": ATTN_PER_FORWARD * (n_prompt + n_gen - 1),
+                   "ssd_chunk": 0}, f"serve.main {' '.join(SERVE_ARGV)}")
+    check(tuple(served.shape) == (n_req, n_gen), f"served {tuple(served.shape)}")
+    check(bool(((served >= 0) & (served < cfg.vocab_size)).all()), "bad tokens")
+    wall["serve_prefill_s"] = times["prefill_s"]
+    wall["serve_decode_s"] = times["decode_s"]
+    wall["serve_decode_tok_per_s"] = n_req * (n_gen - 1) / times["decode_s"]
+
+    # the composition: hidden states -> ds-array -> KMeans
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        states = []
+        for _ in range(HIDDEN_BATCHES):
+            toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen,
+                                 device="cuda")
+            h, _ = hybrid.forward_hidden(params, cfg, toks)
+            states.append(h.float().reshape(-1, cfg.d_model))
+    data = torch.cat(states)          # bf16 hidden states cast to float32
+    del states
+    torch.cuda.synchronize()
+    wall["hidden_s"] = time.perf_counter() - t0
+    n = data.shape[0]
+    x = rt.from_array(data, HIDDEN_BLOCK, device="cuda")
+    km = KMeans(n_clusters=LM_CLUSTERS, max_iter=20, tol=1e-4, seed=0)
+    with tracing.recording() as events:
+        t0 = time.perf_counter()
+        km.fit(x)
+        torch.cuda.synchronize()
+        wall["kmeans_fit_s"] = time.perf_counter() - t0
+    pred = km.predict(x)
+    score = km.score(x)
+    launches["composition"] = read_counts()
+    expect_counts(launches["composition"],
+                  {"flash_attention": ATTN_PER_FORWARD * HIDDEN_BATCHES,
+                   "ssd_chunk": SSD_PER_FORWARD * HIDDEN_BATCHES,
+                   "kmeans_assign": km.n_iter_ + 1},
+                  f"{HIDDEN_BATCHES} forward_hidden + KMeans fit/predict/score")
+    iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
+    wall["kmeans_n_iter"] = km.n_iter_
+    wall["kmeans_s_per_iteration"] = statistics.median(iters) / 1e6
+    wall["kmeans_lloyd_s"] = [e["dur"] for e in events if e["name"] == "fit.loop"][0] / 1e6
+    check(km.n_iter_ >= 1, "KMeans on hidden states ran no iteration")
+    check(score == score and abs(score) != float("inf"), f"score {score}")
+    c64 = km.centers_.double()
+    want = torch.cat([sq_dists(data[lo:lo + 16384].double(), c64).argmin(1)
+                      for lo in range(0, n, 16384)])
+    near, lerr = check_labels(data, km.centers_, pred.collect().reshape(-1), want,
+                              "predict on hidden states")
+    plain_score = -sum(float(sq_dists(data[lo:lo + 16384].double(), c64)
+                             .min(1).values.clamp(min=0).sum())
+                       for lo in range(0, n, 16384))
+    srel = abs(score - plain_score) / abs(plain_score)
+    check(srel <= 1e-4, f"hidden-state score {score} vs float64 {plain_score}")
+    print(f"[6] KMeans on {n} x {cfg.d_model} hidden states, blocks {HIDDEN_BLOCK}: "
+          f"n_iter {km.n_iter_}, score {score:.6e} (float64 {plain_score:.6e}, rel "
+          f"{srel:.2e}); predict differs from the float64 argmin at {near} "
+          f"near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others", flush=True)
+    print(f"[6] wall: {json.dumps(wall)}", flush=True)
+
+    # where the device time goes (counts of these runs are not the path's)
+    with torch.inference_mode():
+        profiles = [device_profile(torch, lambda: model.forward(params, tokens),
+                                   f"forward {tuple(tokens.shape)}")]
+        cache = model.init_cache(4, 16, device="cuda")
+        step = tokens[:1, :1].repeat(4, 1)
+
+        def decode_window():
+            for _ in range(8):
+                model.decode_step(params, cache, step)
+
+        decode_window()   # warm
+        profiles.append(device_profile(torch, decode_window, "8 decode steps, batch 4"))
+        del cache
+    return params, x, km, launches, wall, profiles
+
+
+def lm_times(torch, gen, x, km, launches):
+    """Phase 7: times of the LM path's kernels at its shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.kmeans.ref import kmeans_assign_stacked_ref
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+
+    def report(row):
+        lib = row["library_ms"]
+        print(f"[7] {row['case']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
+              f"library {'-' if lib is None else f'{lib:.3f}'}, bound "
+              f"{row['bound_ms']:.3f} by {row['bound_by']})", flush=True)
+        return row
+
+    def total(name):
+        return sum(counts[name] for counts in launches.values())
+
+    bf16 = torch.bfloat16
+    rows = {}
+    # attention: prefill (the model's (B, T, H, D) views) and decode
+    flash = []
+    for b, tq, tk, kv_len, causal in [(LM_BATCH, LM_SEQ, LM_SEQ, LM_SEQ, True),
+                                      (4, 1, 320, 300, False)]:
+        h, d = 32, 80
+        if tq > 1:
+            qkv = torch.randn((3, b, tq, h, d), generator=gen, device="cuda").to(bf16)
+            q, k, v = (qkv[i].transpose(1, 2) for i in range(3))
+        else:
+            q = torch.randn((b, h, tq, d), generator=gen, device="cuda").to(bf16)
+            k, v = (torch.randn((b, h, tk, d), generator=gen, device="cuda").to(bf16)
+                    for _ in range(2))
+        kw = dict(causal=causal, window=0, softcap=0.0, sm_scale=d ** -0.5,
+                  kv_len=kv_len)
+        out = fk.flash_attention(q, k, v, **kw)
+        ref = attention_ref(q, k, v, **kw)
+        check(bad_count(out, ref, attn_limit(q, k, v, kw, ref)) == 0,
+              "attention beyond its limit in phase 7")
+        err = float((out.double() - ref.double()).abs().max())
+        del out, ref
+        if causal:   # q·k over the causal half, then p·v: 4·B·H·T²·D/2
+            flops = 4.0 * b * h * tq * tk * d / 2
+            lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=d ** -0.5))
+        else:
+            flops = 4.0 * b * h * tq * kv_len * d
+            lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len], scale=d ** -0.5))
+        nbytes = 2.0 * b * h * d * (2 * tq + 2 * kv_len)   # q, o; k, v read once
+        b_ms, b_by = bound(flops, nbytes, "bf16")
+        flash.append(report({
+            "case": f"{'prefill' if causal else 'decode'} B={b} H={h} Tq={tq} Tk={tk} "
+                    f"kv_len={kv_len} D={d} bf16{' causal' if causal else ''}",
+            "ms": timed(lambda: fk.flash_attention(q, k, v, **kw)),
+            "plain_ms": timed(lambda: attention_ref(q, k, v, **kw)),
+            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "flops": flops, "bytes": nbytes, "max_abs_err": err}))
+        del q, k, v
+
+    # SSD chunk at the model's shape: B·H = 160 rows, B and C per group (B·G = 2)
+    bh, bg, t, L, p, s = LM_BATCH * 80, LM_BATCH, LM_SEQ, 128, 64, 64
+    args = ssd_inputs(torch, gen, bh, bg, t, p, s, slow=False)[:5]
+    got = sk.ssd_chunk(*args, chunk=L)
+    want = ssd_chunk_ref(*args, chunk=L)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    del got, want
+    nc = t // L
+    # C·Bᵀ and W·X over the causal half (the L(L+1)/2 pairs s <= t), then
+    # the chunk state (B ⊙ decay)ᵀ·X
+    flops = bh * nc * (L * (L + 1) / 2 * (2.0 * s + 2.0 * p) + 2.0 * L * s * p)
+    # inputs x, dt, a, B and C once per group; outputs y, states, C·exp(ℓ), decay
+    nbytes = 4.0 * (bh * t * p + bh * t + bh + 2 * bg * t * s
+                    + bh * t * p + bh * nc * s * p + bh * t * s + bh * nc)
+    b_ms, b_by = bound(flops, nbytes, "fp32")
+    ssd = report({
+        "case": f"ssd_chunk BH={bh} (B, C per 80 heads) T={t} L={L} P={p} S={s} f32",
+        "ms": timed(lambda: sk.ssd_chunk(*args, chunk=L)),
+        "plain_ms": timed(lambda: ssd_chunk_ref(*args, chunk=L)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "bytes": nbytes, "max_abs_err": err})
+    del args
+
+    # kmeans_assign, D-tiled, on the hidden states and their fitted centers
+    blocks = x.blocks
+    gn, gm, bn, bm = blocks.shape
+    centers = km.centers_.contiguous()
+    n, k, d, n_pad = x.shape[0], centers.shape[0], gm * bm, gn * bn
+    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, centers, n)
+    l2, _, _ = kmeans_assign_stacked_ref(blocks, centers, n)
+    near, lerr = check_labels(stacked_rows(blocks, n), centers, l1[:n], l2[:n],
+                              "kmeans_assign D-tiled")
+    serr = check_stats(blocks, l1, s1, c1, "kmeans_assign D-tiled")
+    del l1, s1, c1, l2
+    flops = 2.0 * n * k * d + 3.0 * n * k + 2.0 * n * d + n * d
+    nbytes = 4.0 * (n * d + k * d + n_pad + k * d + k)
+    b_ms, b_by = bound(flops, nbytes, "fp32")
+    wide = report({
+        "case": f"assign {n}x{d}, k={k}, blocks {HIDDEN_BLOCK}, "
+                f"{kk.launch_plan(kk._lib(), k, d, 0)}",
+        "ms": timed(lambda: kk.kmeans_assign_stacked(blocks, centers, n)),
+        "plain_ms": timed(lambda: kmeans_assign_stacked_ref(blocks, centers, n)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "bytes": nbytes, "max_abs_err": serr, "label_near_ties": near})
+    print(f"[7] kmeans_assign D-tiled: labels differ from the plain version at {near} "
+          f"near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others", flush=True)
+    device_profile(torch, lambda: kk.kmeans_assign_stacked(blocks, centers, n),
+                   "kmeans_assign D-tiled (labels, sums and reduce kernels)")
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    by_path = {name: {path: counts[name] for path, counts in launches.items()}
+               for name in ("flash_attention", "ssd_chunk")}
+    return wide, [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
+         "launches": total("flash_attention"),
+         "launches_by_path": by_path["flash_attention"], "shape": flash[0]["case"],
+         **{key: flash[0][key] for key in keys}, "cases": flash},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd/kernel.py:77",
+         "launches": total("ssd_chunk"), "launches_by_path": by_path["ssd_chunk"],
+         "shape": ssd["case"], **{key: ssd[key] for key in keys}},
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -537,9 +1312,28 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(torch, gen)
+    phase_lm_kernels(torch, gen)
     x, A, B, Ab, Bb, km, launches, wall = main_path(torch, gen)
     kernels = phase_times(torch, x, A, B, Ab, Bb, km, launches)
     print(f"[5] card: {smi}; main path wall: {json.dumps(wall)}")
+    del x, A, B, Ab, Bb, km
+    torch.cuda.empty_cache()
+    params, hx, hkm, lm_launches, lm_wall, profiles = lm_path(torch, gen)
+    del params
+    torch.cuda.empty_cache()
+    wide, lm_kernel_lines = lm_times(torch, gen, hx, hkm, lm_launches)
+    assign = kernels[1]
+    assign["launches_by_path"] = {"dsarray_kmeans": assign["launches"],
+                                  "composition": lm_launches["composition"]["kmeans_assign"]}
+    assign["launches"] = sum(assign["launches_by_path"].values())
+    assign["cases"] = [{key: assign[key] for key in ("shape", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by",
+                                                     "library_ms", "max_abs_err")},
+                       wide]
+    kernels[0]["launches_by_path"] = {"dsarray_kmeans": kernels[0]["launches"]}
+    kernels += lm_kernel_lines
+    print(f"[7] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "
+          f"{json.dumps(profiles)}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,8 @@
 ``dsarray_from_numpy`` rebuilds a reference ``DsArray`` from
 ``np.asarray(x.blocks)``, ``x.shape``, ``x.block_shape`` and ``x.pad_state``;
 ``kmeans_from_numpy`` rebuilds a fitted reference ``KMeans`` from its
-params, centers and iteration count.  Neither imports the reference.
+params, centers and iteration count; ``params_from_numpy`` carries a model's
+parameter tree.  None imports the reference.
 """
 
 from __future__ import annotations
@@ -44,3 +45,21 @@ def kmeans_from_numpy(params: dict, centers: np.ndarray, n_iter: int,
     est.centers_ = _tensor(np.asarray(centers), device)
     est.n_iter_ = int(n_iter)
     return est
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A reference parameter tree (nested dicts and lists of NumPy arrays, as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives it) as torch
+    tensors on ``device``, with the same dtypes.  bfloat16 arrays (NumPy
+    dtype ``bfloat16``, which ``torch.from_numpy`` rejects) are carried bit
+    for bit through their 16-bit patterns."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {key: params_from_numpy(v, dev) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, dev) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr.view(np.uint16)))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr)).to(dev)

@@ -12,11 +12,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.kmeans import kernel as kk  # noqa: E402
 from repro_torch.kernels.kmeans.ref import kmeans_assign_stacked_ref  # noqa: E402
 from repro_torch.kernels.matmul import kernel as mk  # noqa: E402
 from repro_torch.kernels.matmul.ops import local_matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import stacked_matmul_ref  # noqa: E402
+from repro_torch.kernels.ssd import kernel as sk  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_ref  # noqa: E402
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -57,6 +62,15 @@ def test_stacked_matmul_matches_plain(card, dims, dtype, transpose_a):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def _stack(card, x, bs):
+    n, d = x.shape
+    bn, bm = bs
+    gn, gm = -(-n // bn), d // bm
+    blocks = torch.zeros((gn * bn, d), device=card)
+    blocks[:n] = x
+    return blocks.reshape(gn, bn, gm, bm).permute(0, 2, 1, 3).contiguous()
+
+
 def _blobs(card, n, d, k, seed):
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(k, d)).astype(np.float32) * 4
@@ -71,16 +85,131 @@ def _blobs(card, n, d, k, seed):
     (1500, 1000, 16, (700, 1000)),    # centers staged 8 at a time
     (1200, 784, 64, (500, 784)),      # the partial in global scratch
     (4000, 64, 1000, (1024, 64)),     # many clusters, two chunks
+    (3000, 2560, 64, (1024, 2560)),   # zamba2-2.7b hidden states: D-tiled
+    (1000, 4096, 17, (512, 1024)),    # D-tiled, gm = 4, a ragged chunk
+    (700, 3000, 100, (300, 3000)),    # D-tiled, two chunks, a ragged slice
+    (3000, 40, 2000, (1024, 40)),     # sums pass with its partial in global memory
 ])
 def test_kmeans_assign_matches_plain(card, n, d, k, bs):
     x, c = _blobs(card, n, d, k, seed=n + k)
-    bn, bm = bs
-    gn, gm = -(-n // bn), d // bm
-    blocks = torch.zeros((gn * bn, d), device=card)
-    blocks[:n] = x
-    blocks = blocks.reshape(gn, bn, gm, bm).permute(0, 2, 1, 3).contiguous()
+    blocks = _stack(card, x, bs)
     l1, s1, c1 = kk.kmeans_assign_stacked(blocks, c, n)
     l2, s2, c2 = kmeans_assign_stacked_ref(blocks, c, n)
     torch.testing.assert_close(l1, l2, atol=0, rtol=0)
     torch.testing.assert_close(c1, c2, atol=0, rtol=0)
     torch.testing.assert_close(s1, s2, atol=1e-4 * float(s2.abs().max()), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,k,bs", [(3000, 100, 64, (1024, 100)),
+                                      (2000, 784, 10, (512, 392))])
+def test_kmeans_labels_do_not_depend_on_the_layout(card, monkeypatch, n, d, k, bs):
+    """The D-tiled layout sums every distance in the same order as the
+    whole-row one: forced onto a shape the whole-row layout takes, it gives
+    the same labels bit for bit (and the same counts)."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(card)
+    blocks = _stack(card, x, bs)
+    assert kk.launch_plan(kk._lib(), k, d, card.index or 0).d_slice == 0
+    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, c, n)
+    for ds in (256, 32):
+        plan = kk.Plan(32, min(-(-k // 8) * 8, 64), False, ds)
+        monkeypatch.setattr(kk, "launch_plan", lambda *args, plan=plan: plan)
+        l2, s2, c2 = kk.kmeans_assign_stacked(blocks, c, n)
+        torch.testing.assert_close(l1, l2, atol=0, rtol=0)
+        torch.testing.assert_close(c1, c2, atol=0, rtol=0)
+        torch.testing.assert_close(s1, s2, atol=1e-4 * float(s1.abs().max()),
+                                   rtol=1e-4)
+
+
+FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff
+    (128, 128, 4, 2, 64, True, 0, 0.0, 0),
+    (100, 100, 4, 4, 48, True, 0, 0.0, 0),
+    (64, 256, 2, 1, 64, True, 0, 0.0, 192),
+    (128, 128, 8, 2, 64, True, 64, 0.0, 0),
+    (128, 128, 4, 2, 64, True, 0, 30.0, 0),
+    (96, 160, 4, 2, 64, False, 0, 0.0, 0),
+    (1, 300, 4, 2, 64, True, 0, 0.0, 299),
+    (256, 512, 2, 2, 128, True, 128, 50.0, 0),
+    (300, 300, 4, 4, 80, True, 0, 0.0, 0),     # zamba2's head dim
+    (70, 90, 2, 2, 256, False, 0, 0.0, 0),     # gemma2's head dim
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(card, case, dtype):
+    tq, tk, hq, hkv, d, causal, window, cap, qoff = case
+    g = torch.Generator(device=card).manual_seed(tq + tk + d)
+    q = torch.randn((2, hq, tq, d), generator=g, device=card).to(dtype)
+    k = torch.randn((2, hkv, tk, d), generator=g, device=card).to(dtype)
+    v = torch.randn((2, hkv, tk, d), generator=g, device=card).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff,
+              sm_scale=d ** -0.5)
+    got = fk.flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    atol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 57, 200])
+def test_flash_attention_decode_and_strided_views(card, kv_len):
+    """Tq = 1 against a cache with kv_len valid slots, and q/k/v passed as
+    (B, T, H, D) -> (B, H, T, D) views (read through their strides)."""
+    g = torch.Generator(device=card).manual_seed(kv_len)
+    x = torch.randn((3, 2, 200, 32, 80), generator=g, device=card)
+    q = x[0, :, :1].transpose(1, 2)
+    k, v = x[1].transpose(1, 2), x[2].transpose(1, 2)
+    kw = dict(causal=False, window=0, softcap=0.0, sm_scale=80 ** -0.5,
+              kv_len=kv_len)
+    got = fk.flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw), atol=3e-5, rtol=0)
+    if kv_len == 0:
+        assert bool((got == 0).all())
+
+
+def test_flash_attention_int_raises(card):
+    t = torch.ones((1, 1, 4, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        fk.flash_attention(t, t, t, causal=True, window=0, softcap=0.0, sm_scale=1.0)
+
+
+def _ssd_inputs(card, bh, bg, t, p, s, slow, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape, generator=g, device=card)  # noqa: E731
+    x = torch.randn((bh, t, p), generator=g, device=card)
+    dt = u(0.001, 0.1, bh, t) if slow else u(0.5, 1.0, bh, t)
+    a = -(u(0.5, 2.0, bh) if slow else u(1.0, 16.0, bh))
+    b = torch.randn((bg, t, s), generator=g, device=card)
+    c = torch.randn((bg, t, s), generator=g, device=card)
+    h0 = torch.randn((bh, s, p), generator=g, device=card)
+    return x, dt, a, b, c, h0
+
+
+@pytest.mark.parametrize("bh,bg,t,p,s,chunk", [
+    (4, 4, 256, 64, 32, 64), (3, 3, 64, 16, 8, 32), (1, 1, 32, 128, 128, 16),
+    (8, 1, 512, 64, 64, 128),      # zamba2: one group of B, C for all heads
+])
+@pytest.mark.parametrize("slow", [True, False])
+def test_ssd_chunk_matches_plain(card, bh, bg, t, p, s, chunk, slow):
+    x, dt, a, b, c, _ = _ssd_inputs(card, bh, bg, t, p, s, slow, seed=t + p)
+    got = sk.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    want = ssd_chunk_ref(x, dt, a, b, c, chunk=chunk)
+    for name, g_, w_ in zip(("y_intra", "states", "c_dec", "decay"), got, want):
+        scale = max(1.0, float(w_.abs().max()))
+        torch.testing.assert_close(g_, w_, atol=2e-5 * scale, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_on_the_card_matches_the_oracle(card, with_h0):
+    x, dt, a, b, c, h0 = _ssd_inputs(card, 6, 2, 300, 32, 16, True, seed=5)
+    y, h = ssd_scan(x, dt, a, b, c, h0 if with_h0 else None, chunk=64)
+    y2, h2 = ssd_ref(x, dt, a, b, c, h0 if with_h0 else None)
+    torch.testing.assert_close(y, y2, atol=2e-4, rtol=1e-5)
+    torch.testing.assert_close(h, h2, atol=2e-4, rtol=1e-5)
+
+
+def test_ssd_chunk_bf16_raises(card):
+    x, dt, a, b, c, _ = _ssd_inputs(card, 2, 2, 32, 8, 8, True, seed=0)
+    with pytest.raises(TypeError):
+        sk.ssd_chunk(x.bfloat16(), dt, a, b, c, chunk=16)

@@ -24,6 +24,10 @@ _SCRIPT = """
 import sys
 import numpy as np
 import repro_torch as pt
+import repro_torch.models
+import repro_torch.launch.serve
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.ssd.ops
 from repro_torch.algorithms import KMeans
 x = pt.from_array(np.random.default_rng(0).normal(size=(40, 3)), (16, 2),
                   device="cpu")
@@ -31,6 +35,8 @@ km = KMeans(n_clusters=2, max_iter=5).fit(x)
 km.predict(x)
 km.score(x)
 (x @ x.T).sum()
+repro_torch.launch.serve.main(["--smoke", "--device", "cpu", "--batch", "1",
+                               "--prompt-len", "3", "--gen", "2"])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(loaded)

@@ -37,7 +37,8 @@ def _blobs(n, d, k, seed):
 
 
 @pytest.mark.parametrize("n,d,k", [(10, 2, 2), (300, 16, 5), (600, 130, 17),
-                                   (257, 33, 8), (129, 7, 3)])
+                                   (257, 33, 8), (129, 7, 3),
+                                   (40, 2560, 17)])   # zamba2-2.7b's width
 def test_kmeans_assign_matches_pallas(n, d, k):
     x, c = _blobs(n, d, k, seed=n + d + k)
     labels, sums, counts = kmeans_assign(torch.from_numpy(x), torch.from_numpy(c))
@@ -94,18 +95,24 @@ class _SmemLib:
         return self.limit
 
     @staticmethod
-    def kmeans_assign_smem_bytes(k, d, rows, chunk, smem_partial):
-        kpad = -(-k // 8) * 8    # the layout of csrc/kmeans_assign.cu
+    def kmeans_assign_smem_bytes(k, d, rows, chunk, smem_partial, d_slice):
+        # the layouts of csrc/kmeans_assign.cu
+        if d_slice:
+            return 4 * (chunk * d_slice + rows * (d_slice | 1) + chunk + 2 * 256)
+        kpad = -(-k // 8) * 8
         partial = k * (d + 1) if smem_partial else 0
         return 4 * (chunk * d + kpad + partial + rows * (d | 1) + rows + 2 * 256)
 
 
 @pytest.mark.parametrize("k,d,plan", [
-    (64, 100, (256, 64, True)),       # the main path: all on chip, one chunk
-    (10, 784, (32, 16, True)),        # MNIST-sized, 10 clusters
-    (16, 1000, (32, 8, True)),        # centers staged 8 at a time
-    (64, 784, (32, 32, False)),       # MNIST-sized, 64 clusters: global partial
-    (1000, 64, (256, 504, False)),    # many clusters: two chunks
+    (64, 100, (256, 64, True, 0)),       # the main path: all on chip, one chunk
+    (10, 784, (32, 16, True, 0)),        # MNIST-sized, 10 clusters
+    (16, 1000, (32, 8, True, 0)),        # centers staged 8 at a time
+    (64, 784, (32, 32, False, 0)),       # MNIST-sized, 64 clusters: global partial
+    (1000, 64, (256, 504, False, 0)),    # many clusters: two chunks
+    (64, 2560, (32, 64, False, 256)),    # zamba2-2.7b hidden states: D-tiled
+    (5, 2560, (32, 8, False, 256)),      # D-tiled, one group of centers
+    (1000, 16384, (32, 64, False, 256)),  # D-tiled, 16 chunks of centers
 ])
 def test_tile_rows_fit_shared_memory(k, d, plan):
     lib = _SmemLib(232448)                       # sm_90 opt-in limit
@@ -115,8 +122,21 @@ def test_tile_rows_fit_shared_memory(k, d, plan):
 
 
 def test_launch_plan_raises_past_one_tile():
-    with pytest.raises(ValueError, match="do not fit"):
-        kernel.launch_plan(_SmemLib(232448), 16, 5000, 0)
+    """Rows wider than one 32-row tile and 8 centers fill (~1,450 features)
+    take the D-tiled layout instead of raising, at any k."""
+    lib = _SmemLib(232448)
+    for d in (2560, 4096):
+        for k in (1, 16, 64, 100_000):
+            got = kernel.launch_plan(lib, k, d, 0)
+            assert got.d_slice == 256 and got.tile_rows == 32
+            assert not got.smem_partial
+            assert got.chunk == min(-(-k // 8) * 8, 64)
+            assert lib.kmeans_assign_smem_bytes(k, d, *got) <= lib.limit
+    # a smaller shared memory takes a narrower slice
+    small = _SmemLib(48 * 1024)
+    got = kernel.launch_plan(small, 64, 4096, 0)
+    assert got == (32, 64, False, 64)
+    assert small.kmeans_assign_smem_bytes(64, 4096, *got) <= small.limit
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

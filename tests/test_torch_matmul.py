@@ -123,6 +123,6 @@ def test_build_dir_names_the_sources():
     d = _build._build_dir()
     assert d.parent == _build.BUILD_ROOT
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "repro_torch_kernels")
-    assert {p.stem for p in _build._sources()} == {"stacked_matmul",
-                                                   "kmeans_assign"}
+    assert {p.stem for p in _build._sources()} == {
+        "stacked_matmul", "kmeans_assign", "flash_attention", "ssd_chunk"}
     assert _build._build_dir() == d          # content hash: stable
