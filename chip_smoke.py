@@ -8,19 +8,28 @@ Run from the root of a checkout; the kernels are built from
 raises and the script exits non-zero):
 
 1. card and precision: the card, its power limit, the TF32 switches (off);
-2. build: the four CUDA kernels (one nvcc each, in parallel), with the build
-   seconds and ptxas' report;
-3. kernel vs plain on the card: ``stacked_matmul`` in f32/bf16/f16, with
-   ``transpose_a``, ragged blocks, a strided view, split-K, the 2-D entry and
-   an int32 operand that must raise; ``kmeans_assign`` with ragged n,
+2. build: the four CUDA sources (one nvcc each, in parallel), with the
+   build seconds and ptxas' report, per kernel for the Hopper redesign
+   (``wgmma_kernel``, ``attn_wgmma_kernel``, ``simt_kernel``), which must
+   show no spills;
+3. kernel vs plain on the card, each call checked to take the route its
+   layout implies (the wrappers count launches by route):
+   ``stacked_matmul`` on the SIMT route in f32/bf16/f16 (ragged blocks,
+   18- and 140-byte rows, split-K) and on the wgmma route in bf16/f16 (at
+   the tile, ragged, below one tile, ``transpose_a``, K-major B, split-K),
+   each run twice for the same bits, a strided ``DsArray.T`` view on both
+   routes, the 2-D entry and an int32 operand that must raise;
+   ``kmeans_assign`` with ragged n,
    gm > 1, k not a multiple of 8, k·d past one block's shared memory
    (centers staged in chunks, the partial in global scratch), rows of 2,560
    and 4,096 features (the D-tiled layout), and the D-tiled layout forced on
    narrow rows, whose labels must equal the whole-row layout's bit for bit,
    and k = 2000 (the sums pass with its partial in global memory);
-   ``flash_attention`` on the cases of ``tests/test_kernels.py``, at the LM
-   path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16) and
-   decode shape (Tq = 1, kv_len < Tk); ``ssd_chunk`` + ``ssd_scan`` at the
+   ``flash_attention`` on the cases of ``tests/test_kernels.py`` and D of
+   80, 112 and 256 in f32 (SIMT tile), bf16 and f16 (wgmma), at the LM
+   path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16),
+   D = 80 with q_offset and kv_len, and the decode shape (Tq = 1,
+   kv_len < Tk, the rows kernel); ``ssd_chunk`` + ``ssd_scan`` at the
    LM path's shape (B·H = 160, T = 4096, L = 128, P = S = 64) with fast and
    slow decay and ``h0``; each against a limit from its output's precision
    and reduction depth that a zeroed output, attention without its causal
@@ -30,18 +39,24 @@ raises and the script exits non-zero):
    ``mean(axis=0)`` -> ``matmul_ta(x, x)``; 8192² ``A @ B`` and
    ``matmul_ta(A, B)`` in f32 and bf16 with blocks (2048, 2048);
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` fit, predict and score.
-   The launch counts are zeroed just before and read just after, and every
-   result is checked against a plain or float64 version; a zeroed product
-   and products of bf16- or TF32-rounded inputs must fail the GEMM check;
+   The launch counts are zeroed just before and read just after (the two
+   bf16 products must take the wgmma route, the f32 ones and the Gram the
+   SIMT route), and every result is checked against a plain or float64
+   version; a zeroed product and products of bf16- or TF32-rounded inputs
+   must fail the GEMM check;
 5. times at that path's shapes (median of 7 CUDA-event timed runs after a
-   warm-up) beside the bound the card's data sheet gives, and its wall times;
+   warm-up, each queued behind a ~1 ms device-side spin so that the host's
+   launch latency is not counted) beside the bound the card's data sheet
+   gives, and its wall times; the bf16 products also on the SIMT route
+   (forced, as before the tensor-core kernel), in the same run;
 6. the LM path: zamba2-2.7b at its published widths (54 Mamba-2 layers, the
    shared attention block after every 6), bf16, random weights from
    ``--seed`` with every norm scale, ``conv_b`` and ``dt_bias`` redrawn (the
    package's init, like the reference's, zeroes the norms, which makes every
    Mamba layer the identity).  Each step below zeroes the launch counts
    before and checks them after (9 attention and 54 SSD launches per
-   forward, 9 attention launches per decoded token):
+   forward, all 9 attention launches of a bf16 forward on the wgmma route,
+   9 attention launches per decoded token on the rows kernel):
    ``forward`` on B = 2, T = 4096, its logits against the same forward with
    the plain attention and SSD swapped in, then timed (median of 3 warm
    runs); the float32 model at T = 64, ``decode_step`` teacher-forced
@@ -54,20 +69,22 @@ raises and the script exits non-zero):
    2,560 fp32) as a ds-array with blocks (8192, 2560), clustered by
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` through the D-tiled
    ``kmeans_assign``;
-7. times of ``flash_attention``, ``ssd_chunk`` and the D-tiled
+7. times of ``flash_attention`` (prefill on the wgmma route and, forced,
+   on the SIMT tile kernel; decode), ``ssd_chunk`` and the D-tiled
    ``kmeans_assign`` at the LM path's shapes (the SSD chunk's bound counts
    the causal half of its L x L products), the LM path's wall times, and a
    ``torch.profiler`` breakdown (device time by kernel group, the device's
    busy share) of one forward, 8 decode steps and one D-tiled assign.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
-kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card
-it exits non-zero and prints no result.
+kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
+CUDA card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -85,6 +102,7 @@ X_BLOCK = (262_144, 100)
 SQUARE, SQUARE_BLOCK = 8192, (2048, 2048)
 SAMPLE_ROWS = 1_000_000
 TIMED_RUNS = 7
+SPIN_CYCLES = 2_000_000    # ~1 ms of the card's clock before each timed run
 # GEMM limit: GEMM_ERRS x the fp32 error of a depth-K sum, eps·√K·rms(ref),
 # plus one unit in the last place of the output type
 GEMM_ERRS = 8
@@ -152,7 +170,11 @@ def tf32(t):
 
 
 def timed(fn, runs: int = TIMED_RUNS) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after one warm-up call."""
+    """Median CUDA-event time of ``fn`` in ms, after one warm-up call.  Each
+    run is queued behind a device-side spin of SPIN_CYCLES, so the host has
+    enqueued ``fn``'s launches before the card reaches them and the time is
+    the card's, not the host's launch latency (which dominates a call of a
+    few µs, such as decode attention)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -160,6 +182,7 @@ def timed(fn, runs: int = TIMED_RUNS) -> float:
     for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -324,6 +347,42 @@ class forced_plan:
         return False
 
 
+class forced_route:
+    """Within the block, every GEMM takes the SIMT route (the script patches
+    ``tma_operand``, so ``plan`` finds no TMA-readable operand) and every
+    attention of more than 8 queries the SIMT tile kernel (it patches
+    ``route``): the routes the bf16 main path took before the tensor-core
+    kernels, timed beside them in one run.  The package has no such
+    option."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.matmul import kernel as mk
+        self.saved = (mk.tma_operand, fk.route)
+        mk.tma_operand = lambda *args: None
+        fk.route = lambda q, k, v: "rows" if q.shape[2] <= fk.ROW_QUERIES else "tile"
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.matmul import kernel as mk
+        mk.tma_operand, fk.route = self.saved
+        return False
+
+
+def routed(fn, kernel_fn, route: str, what: str):
+    """``fn()`` after a check that it launched ``kernel_fn`` once, by
+    ``route`` (its per-route count rose by one and no other did)."""
+    import torch
+    before = dict(kernel_fn.route_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    diff = {r: n - before[r] for r, n in kernel_fn.route_launches.items()}
+    check(diff == {r: int(r == route) for r in diff},
+          f"{what}: launches by route {diff}, expected one by {route}")
+    return out
+
+
 def ssd_without_inter(x, dt, a, b, c, h0=None, *, chunk):
     """``ssd_scan`` with its inter-chunk term dropped (a control): y_intra
     of the plain chunk, and the last chunk's own state."""
@@ -433,10 +492,15 @@ def lm_kernels():
 def zero_counts() -> None:
     for fn in lm_kernels().values():
         fn.launches = 0
+    fa = lm_kernels()["flash_attention"]
+    fa.route_launches = dict.fromkeys(fa.route_launches, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in lm_kernels().items()}
+    counts = {name: fn.launches for name, fn in lm_kernels().items()}
+    routes = lm_kernels()["flash_attention"].route_launches
+    counts.update({f"flash_attention/{r}": n for r, n in routes.items()})
+    return counts
 
 
 def expect_counts(got, want, what: str) -> None:
@@ -465,17 +529,49 @@ def phase_card(torch):
     return name, smi[0]
 
 
+#: kernels of the Hopper redesign, whose ptxas report must show no spills
+NEW_KERNELS = ("wgmma_kernel", "attn_wgmma_kernel", "simt_kernel")
+
+
+def ptxas_entries(log: str):
+    """``[(entry, properties, usage)]`` from one source's ``-Xptxas -v``
+    report: each entry function's spill line and register line."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = [line.split("'")[1], "", ""]
+            entries.append(cur)
+        elif cur is not None and "spill" in line:
+            cur[1] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur[2] = line.split(":", 1)[1].strip()
+    return entries
+
+
+def ptxas_losses(log: str):
+    """ptxas' "Potential Performance Loss" notes (e.g. wgmma serialized)."""
+    return [line.split(":", 1)[1].strip() for line in log.splitlines()
+            if "Performance Loss" in line]
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[2] build: {time.perf_counter() - t0:.3f} s", flush=True)
+    spilled = []
     for name, log in sorted(_build.BUILD_LOGS.items()):
-        used = sorted({line.split(":", 1)[1].strip() for line in log.splitlines()
-                       if "Used" in line})
-        spills = sorted({line.strip() for line in log.splitlines()
-                         if "spill" in line})
-        print(f"[2] {name}: {'; '.join(used)}; {'; '.join(spills)}")
+        entries = ptxas_entries(log)
+        used = sorted({usage for _, _, usage in entries})
+        print(f"[2] {name}: {len(entries)} kernels; {'; '.join(used)}")
+        for entry, props, usage in entries:
+            if any(k in entry for k in NEW_KERNELS):
+                print(f"[2]   {entry[:90]}: {usage}; {props}")
+                if "0 bytes spill stores, 0 bytes spill loads" not in props:
+                    spilled.append(entry)
+        for note in ptxas_losses(log):
+            print(f"[2]   ptxas: {note[:200]}")
+    check(not spilled, f"ptxas spills in the new kernels: {spilled}")
 
 
 def phase_kernels(torch, gen):
@@ -490,32 +586,49 @@ def phase_kernels(torch, gen):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
-    cases = [  # gi, gk, gj, bn, bk, bm, dtype, transpose_a
-        (2, 2, 2, 128, 128, 128, f32, False),
-        (2, 3, 2, 50, 70, 30, f32, False),        # ragged blocks
-        (1, 2, 1, 300, 9, 257, f16, False),
-        (2, 3, 2, 50, 70, 30, bf16, True),
-        (3, 2, 1, 33, 17, 5, f32, True),
-        (1, 31, 1, 100, 2000, 100, f32, True),    # split-K
+    mn, kb = False, True   # B stored row-major (N innermost) or as a K-major view
+    cases = [  # gi, gk, gj, bn, bk, bm, dtype, transpose_a, B K-major, route
+        (2, 2, 2, 128, 128, 128, f32, False, mn, "simt"),
+        (2, 3, 2, 50, 70, 30, f32, False, mn, "simt"),        # ragged blocks
+        (1, 2, 1, 300, 9, 257, f16, False, mn, "simt"),       # 18-byte rows
+        (2, 3, 2, 50, 70, 30, bf16, True, mn, "simt"),        # 140-byte rows
+        (3, 2, 1, 33, 17, 5, f32, True, mn, "simt"),
+        (1, 31, 1, 100, 2000, 100, f32, True, mn, "simt"),    # split-K
+        (2, 2, 2, 128, 128, 128, bf16, False, mn, "wgmma"),   # multiples of the tile
+        (2, 2, 2, 256, 192, 384, f16, False, mn, "wgmma"),
+        (2, 3, 2, 200, 72, 136, bf16, False, mn, "wgmma"),    # ragged blocks
+        (2, 3, 2, 200, 72, 136, f16, True, mn, "wgmma"),
+        (1, 2, 1, 40, 24, 56, bf16, True, mn, "wgmma"),       # below one tile
+        (1, 2, 1, 40, 24, 56, bf16, False, kb, "wgmma"),      # K-major B
+        (2, 3, 2, 200, 72, 136, bf16, True, kb, "wgmma"),     # both transposed
+        (1, 16, 1, 128, 2048, 128, bf16, True, mn, "wgmma"),  # split-K
+        (1, 16, 1, 96, 2048, 80, f16, False, kb, "wgmma"),    # split-K, K-major B
     ]
-    for gi, gk, gj, bn, bk, bm, dt, ta in cases:
+    for gi, gk, gj, bn, bk, bm, dt, ta, bkm, route in cases:
         a = rnd(gk, gi, bk, bn, dtype=dt) if ta else rnd(gi, gk, bn, bk, dtype=dt)
-        b = rnd(gk, gj, bk, bm, dtype=dt)
-        out = mk.stacked_matmul(a, b, out_dtype=dt, transpose_a=ta)
+        b = rnd(gk, gj, bm, bk, dtype=dt).transpose(2, 3) if bkm else \
+            rnd(gk, gj, bk, bm, dtype=dt)
+        out = routed(lambda: mk.stacked_matmul(a, b, out_dtype=dt, transpose_a=ta),
+                     mk.stacked_matmul, route, f"stacked_matmul {(gi, gk, gj, bn, bk, bm)}")
         ref = stacked_matmul_ref(a, b, out_dtype=dt, transpose_a=ta)
-        torch.cuda.synchronize()
         err = gemm_close(out, ref, gk * bk)
-        print(f"[3] stacked_matmul {(gi, gk, gj, bn, bk, bm)} {dt} "
-              f"transpose_a={ta}: max abs err {err:.3e}")
+        # the same bits again: split-K sums its workspace in a fixed order
+        check(torch.equal(out, mk.stacked_matmul(a, b, out_dtype=dt, transpose_a=ta)),
+              "stacked_matmul is not deterministic")
+        print(f"[3] stacked_matmul {(gi, gk, gj, bn, bk, bm)} {dt} transpose_a={ta} "
+              f"B {'K' if bkm else 'N'}-major, {route}: max abs err {err:.3e}, "
+              f"bit-identical on a second run")
     # a permuted view (DsArray.transpose) read through its strides
-    base = dsa.from_array(rnd(300, 200), (64, 48), device="cuda")
-    other = dsa.from_array(rnd(300, 90), (64, 40), device="cuda")
-    at = base.T
-    check(not at.blocks.is_contiguous(), "transpose should be a view")
-    got = (at @ other).collect()
-    want = base.collect().T @ other.collect()
-    err = gemm_close(got, want, 300)
-    print(f"[3] stacked_matmul strided Aᵀ view: max abs err {err:.3e}")
+    for dt, route in ((f32, "simt"), (bf16, "wgmma")):
+        base = dsa.from_array(rnd(300, 200, dtype=dt), (64, 48), device="cuda")
+        other = dsa.from_array(rnd(300, 90, dtype=dt), (64, 40), device="cuda")
+        at = base.T
+        check(not at.blocks.is_contiguous(), "transpose should be a view")
+        got = routed(lambda: (at @ other).collect(), mk.stacked_matmul, route,
+                     "strided Aᵀ view")
+        want = (base.collect().float().T @ other.collect().float()).to(dt)
+        err = gemm_close(got, want, 300)
+        print(f"[3] stacked_matmul strided Aᵀ view {dt}, {route}: max abs err {err:.3e}")
     # the 2-D entry (matmul_padded's counterpart)
     a2, b2 = rnd(300, 200), rnd(200, 130)
     before = mk.stacked_matmul.launches
@@ -580,6 +693,9 @@ FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff (tests/test_ker
     (96, 160, 4, 2, 64, False, 0, 0.0, 0),
     (1, 300, 4, 2, 64, True, 0, 0.0, 299),
     (256, 512, 2, 2, 128, True, 128, 50.0, 0),
+    (300, 300, 4, 4, 80, True, 0, 0.0, 0),     # zamba2's head dim
+    (150, 150, 2, 1, 112, True, 48, 0.0, 0),   # D = 112: a zeroed padding chunk
+    (70, 90, 2, 2, 256, False, 0, 0.0, 0),     # D = 256
 ]
 
 
@@ -595,16 +711,20 @@ def phase_lm_kernels(torch, gen):
     def attn(q, k, v, what, **kw):
         kw = dict(dict(causal=True, window=0, softcap=0.0, q_offset=0), **kw,
                   sm_scale=q.shape[-1] ** -0.5)
-        before = fk.flash_attention.launches
-        out = fk.flash_attention(q, k, v, **kw)
-        check(fk.flash_attention.launches == before + 1, f"{what} did not launch")
-        torch.cuda.synchronize()
+        # the route the rule gives: rows for Tq <= 8, tensor cores for 16-bit
+        # types with D a multiple of 16 (all these tensors are TMA-readable)
+        route = ("rows" if q.shape[2] <= fk.ROW_QUERIES else
+                 "wgmma" if q.dtype != torch.float32 and q.shape[3] % 16 == 0
+                 else "tile")
+        what = f"{what}, {route}"
+        out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention,
+                     route, what)
         # the causal mask hides a key from the first query (at q_offset)
         hides = kw["causal"] and kw["q_offset"] < k.shape[2] - 1
         return attn_check(out, q, k, v, kw, what, causal_control=hides)
 
     for tq, tk, hq, hkv, d, causal, window, cap, qoff in FLASH_CASES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             attn(rnd(2, hq, tq, d, dtype=dt), rnd(2, hkv, tk, d, dtype=dt),
                  rnd(2, hkv, tk, d, dtype=dt),
                  f"flash_attention {(tq, tk, hq, hkv, d)} causal={causal} "
@@ -615,6 +735,12 @@ def phase_lm_kernels(torch, gen):
     qkv = rnd(3, LM_BATCH, LM_SEQ, 32, 80, dtype=bf16)
     q, k, v = (qkv[i].transpose(1, 2) for i in range(3))
     attn(q, k, v, f"flash_attention prefill {tuple(q.shape)} bf16, strided views")
+    del qkv, q, k, v
+    # D = 80, causal with q_offset, kv_len cutting the keys, strided views
+    qkv = rnd(3, 2, 700, 8, 80, dtype=bf16)
+    q, k, v = (qkv[i].transpose(1, 2) for i in range(3))
+    attn(q[:, :, :500], k, v, "flash_attention (2, 8, 500, 80) vs 700 keys, q_offset "
+         "150, kv_len 620, bf16", q_offset=150, kv_len=620)
     del qkv, q, k, v
     # the decode shape: one query against a cache of 320 slots, 300 written
     q, k, v = rnd(4, 32, 1, 80, dtype=bf16), rnd(4, 32, 320, 80, dtype=bf16), \
@@ -668,6 +794,7 @@ def main_path(torch, gen):
     torch.cuda.synchronize()
 
     mk.stacked_matmul.launches = 0
+    mk.stacked_matmul.route_launches = dict.fromkeys(mk.ROUTES, 0)
     kk.kmeans_assign_stacked.launches = 0
     wall = {}
     t0 = time.perf_counter()
@@ -696,7 +823,9 @@ def main_path(torch, gen):
     score = km.score(x)
     wall["score_s"] = time.perf_counter() - t0
     launches = {"stacked_matmul": mk.stacked_matmul.launches,
-                "kmeans_assign": kk.kmeans_assign_stacked.launches}
+                "kmeans_assign": kk.kmeans_assign_stacked.launches,
+                **{f"stacked_matmul/{r}": n
+                   for r, n in mk.stacked_matmul.route_launches.items()}}
     loop = [e["dur"] for e in events if e["name"] == "fit.loop"]
     iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
     wall["lloyd_s"] = loop[0] / 1e6
@@ -707,6 +836,10 @@ def main_path(torch, gen):
           f"{registry.snapshot('gemm')}")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+    # the two bf16 8192² products on the tensor cores; the Gram and the two
+    # f32 products on the SIMT route
+    check(launches["stacked_matmul/wgmma"] == 2 and launches["stacked_matmul/simt"] == 3,
+          f"main-path GEMM routes {mk.stacked_matmul.route_launches}: want wgmma 2, simt 3")
 
     # checks
     x64 = data.double()
@@ -772,15 +905,24 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
     from repro_torch.kernels.matmul.ref import matmul_ref, stacked_matmul_ref
 
     def report(row):
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
         lib = row["library_ms"]
         print(f"[5] {row['case']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {'-' if lib is None else f'{lib:.3f}'}, bound "
               f"{row['bound_ms']:.3f} by {row['bound_by']})", flush=True)
         return row
 
-    def gemm_case(label, a, b, ta, kind, depth=None):
+    def gemm_case(label, a, b, ta, kind, route, depth=None):
         """``depth`` is the reduction length the product needs (the valid
-        rows of a Gram), where it is less than the padded gk·bk."""
+        rows of a Gram), where it is less than the padded gk·bk.  A
+        ``route`` of "simt" on bf16 operands forces the SIMT route (the
+        route these products took before the tensor-core kernel)."""
+        forced = forced_route() if route == "simt" and a.dtype != torch.float32 \
+            else contextlib.nullcontext()
+        with forced:
+            return _gemm_case(f"{label}, {route}", a, b, ta, kind, route, depth)
+
+    def _gemm_case(label, a, b, ta, kind, route, depth):
         out_dtype = a.dtype
         av = a.permute(1, 0, 3, 2) if ta else a
         gi, gk, bn, bk = av.shape
@@ -790,7 +932,8 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
         # each input read once (a Gram's one operand once), the output written once
         nbytes = a.element_size() * (m * k + (0 if b is a else k * n) + m * n)
         spec = "kiba,kjbc->ijac" if ta else "ikab,kjbc->ijac"
-        out = mk.stacked_matmul(a, b, out_dtype=out_dtype, transpose_a=ta)
+        out = routed(lambda: mk.stacked_matmul(a, b, out_dtype=out_dtype, transpose_a=ta),
+                     mk.stacked_matmul, route, label)
         ref = stacked_matmul_ref(a, b, out_dtype=out_dtype, transpose_a=ta)
         err = gemm_close(out, ref, k)
         del out, ref
@@ -804,14 +947,23 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
                        "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                        "bytes": nbytes, "max_abs_err": err})
 
+    tc_cases = [  # the tensor-core route, each beside the SIMT route it replaced
+        gemm_case(f"A@B {SQUARE}² bf16, blocks {SQUARE_BLOCK}", Ab.blocks, Bb.blocks,
+                  False, "bf16", "wgmma"),
+        gemm_case(f"A@B {SQUARE}² bf16", Ab.blocks, Bb.blocks, False, "bf16", "simt"),
+        gemm_case(f"matmul_ta(A,B) {SQUARE}² bf16", Ab.blocks, Bb.blocks, True, "bf16",
+                  "wgmma"),
+        gemm_case(f"matmul_ta(A,B) {SQUARE}² bf16", Ab.blocks, Bb.blocks, True, "bf16",
+                  "simt"),
+    ]
     cases = [
         gemm_case(f"A@B {SQUARE}² f32, blocks {SQUARE_BLOCK}", A.blocks, B.blocks,
-                  False, "fp32"),
-        gemm_case(f"matmul_ta(A,B) {SQUARE}² f32", A.blocks, B.blocks, True, "fp32"),
-        gemm_case(f"A@B {SQUARE}² bf16", Ab.blocks, Bb.blocks, False, "bf16"),
-        gemm_case(f"matmul_ta(A,B) {SQUARE}² bf16", Ab.blocks, Bb.blocks, True, "bf16"),
+                  False, "fp32", "simt"),
+        gemm_case(f"matmul_ta(A,B) {SQUARE}² f32", A.blocks, B.blocks, True, "fp32",
+                  "simt"),
         gemm_case(f"matmul_ta(x,x) Gram {N_ROWS}x{N_FEATURES}, blocks {X_BLOCK} "
-                  f"(split-K)", x.blocks, x.blocks, True, "fp32", depth=x.shape[0]),
+                  f"(split-K)", x.blocks, x.blocks, True, "fp32", "simt",
+                  depth=x.shape[0]),
     ]
     # the 2-D entry (the counterpart of matmul_padded), same kernel
     a2d, b2d = A.collect(), B.collect()
@@ -819,13 +971,14 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
     nbytes = 3 * 4.0 * SQUARE * SQUARE
     b_ms, b_by = bound(flops, nbytes, "fp32")
     err = gemm_close(mops.matmul(a2d, b2d), a2d @ b2d, SQUARE)
+    ms = timed(lambda: mops.matmul(a2d, b2d))
     cases.append(report({
-        "case": f"2-D matmul {SQUARE}² f32 (matmul_padded's entry)",
-        "ms": timed(lambda: mops.matmul(a2d, b2d)),
+        "case": f"2-D matmul {SQUARE}² f32 (matmul_padded's entry), simt", "ms": ms,
         "plain_ms": timed(lambda: matmul_ref(a2d, b2d)),
         "library_ms": timed(lambda: torch.matmul(a2d, b2d)),
         "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
         "max_abs_err": err}))
+    cases += tc_cases[1::2]   # the bf16 products on the SIMT route
 
     # kmeans_assign at the fit's shape, against the fitted centers
     blocks = x.blocks
@@ -856,14 +1009,16 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
           f"{near} near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others; sums max "
           f"abs err {serr:.3e} vs float64", flush=True)
 
-    head = cases[0]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    gemm = {"route": "cuda", "source": "src/repro_torch/csrc/stacked_matmul.cu",
+            "replaces": "src/repro/kernels/matmul/kernel.py:75"}
     return [
-        {"name": "stacked_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/stacked_matmul.cu",
-         "replaces": "src/repro/kernels/matmul/kernel.py:75",
-         "launches": launches["stacked_matmul"], "shape": head["case"],
-         **{key: head[key] for key in keys}, "cases": cases},
+        {"name": "stacked_matmul.wgmma", **gemm,
+         "launches": launches["stacked_matmul/wgmma"], "shape": tc_cases[0]["case"],
+         **{key: tc_cases[0][key] for key in keys}, "cases": tc_cases[0::2]},
+        {"name": "stacked_matmul.simt", **gemm,
+         "launches": launches["stacked_matmul/simt"], "shape": cases[0]["case"],
+         **{key: cases[0][key] for key in keys}, "cases": cases},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans/kernel.py:57",
@@ -872,7 +1027,9 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
     ]
 
 
-KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel")),
+KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
+                                      "attn_wgmma_kernel")),
+                 ("stacked_matmul", ("wgmma_kernel", "simt_kernel", "splitk_reduce")),
                  ("ssd_chunk", ("ssd_chunk_kernel",)),
                  ("kmeans_assign", ("kmeans_",)),
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
@@ -936,7 +1093,10 @@ def lm_path(torch, gen):
     cfg = get_config(LM_ARCH)
     model = build_model(cfg)
     wall, launches = {}, {}
-    per_fwd = {"flash_attention": ATTN_PER_FORWARD, "ssd_chunk": SSD_PER_FORWARD}
+    # a bf16 forward's 9 attention launches all take the tensor-core route
+    per_fwd = {"flash_attention": ATTN_PER_FORWARD, "ssd_chunk": SSD_PER_FORWARD,
+               "flash_attention/wgmma": ATTN_PER_FORWARD, "flash_attention/tile": 0,
+               "flash_attention/rows": 0}
     with torch.inference_mode():
         params = model.init(gen, "cuda")
         redraw_norms(params, gen)
@@ -1015,7 +1175,9 @@ def lm_path(torch, gen):
         launches["decode_f32"] = read_counts()
         expect_counts(launches["decode_f32"],
                       {"flash_attention": ATTN_PER_FORWARD * (1 + DECODE_SEQ),
-                       "ssd_chunk": SSD_PER_FORWARD},
+                       "ssd_chunk": SSD_PER_FORWARD,
+                       "flash_attention/tile": ATTN_PER_FORWARD,     # float32
+                       "flash_attention/rows": ATTN_PER_FORWARD * DECODE_SEQ},
                       f"float32 forward + {DECODE_SEQ} decode steps")
         check(derr < DECODE_TOL, f"decode vs teacher forcing: {derr}")
         print(f"[6] float32 decode vs teacher forcing over {DECODE_SEQ} tokens: max "
@@ -1032,6 +1194,7 @@ def lm_path(torch, gen):
         launches["generate_f32"] = read_counts()
         expect_counts(launches["generate_f32"],
                       {"flash_attention": ATTN_PER_FORWARD * (GEN32_PROMPT + GEN32_NEW - 1),
+                       "flash_attention/rows": ATTN_PER_FORWARD * (GEN32_PROMPT + GEN32_NEW - 1),
                        "ssd_chunk": 0}, f"float32 serve.generate {tuple(prompt.shape)} "
                                         f"+ {GEN32_NEW}")
         want = teacher_forced(model32, params32, prompt, got)
@@ -1062,6 +1225,7 @@ def lm_path(torch, gen):
         launches["generate_bf16"] = read_counts()
         expect_counts(launches["generate_bf16"],
                       {"flash_attention": ATTN_PER_FORWARD * (GEN_PROMPT + GEN_NEW - 1),
+                       "flash_attention/rows": ATTN_PER_FORWARD * (GEN_PROMPT + GEN_NEW - 1),
                        "ssd_chunk": 0}, f"bf16 serve.generate {tuple(prompt.shape)} "
                                         f"+ {GEN_NEW}")
         fwd = teacher_forced(model, params, prompt, got)
@@ -1125,6 +1289,7 @@ def lm_path(torch, gen):
     launches["composition"] = read_counts()
     expect_counts(launches["composition"],
                   {"flash_attention": ATTN_PER_FORWARD * HIDDEN_BATCHES,
+                   "flash_attention/wgmma": ATTN_PER_FORWARD * HIDDEN_BATCHES,
                    "ssd_chunk": SSD_PER_FORWARD * HIDDEN_BATCHES,
                    "kmeans_assign": km.n_iter_ + 1},
                   f"{HIDDEN_BATCHES} forward_hidden + KMeans fit/predict/score")
@@ -1177,6 +1342,7 @@ def lm_times(torch, gen, x, km, launches):
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
     def report(row):
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
         lib = row["library_ms"]
         print(f"[7] {row['case']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {'-' if lib is None else f'{lib:.3f}'}, bound "
@@ -1188,10 +1354,13 @@ def lm_times(torch, gen, x, km, launches):
 
     bf16 = torch.bfloat16
     rows = {}
-    # attention: prefill (the model's (B, T, H, D) views) and decode
+    # attention: prefill (the model's (B, T, H, D) views) on the tensor cores
+    # and, forced, on the SIMT tile kernel it replaced; decode
     flash = []
-    for b, tq, tk, kv_len, causal in [(LM_BATCH, LM_SEQ, LM_SEQ, LM_SEQ, True),
-                                      (4, 1, 320, 300, False)]:
+    for b, tq, tk, kv_len, causal, route in [
+            (LM_BATCH, LM_SEQ, LM_SEQ, LM_SEQ, True, "wgmma"),
+            (LM_BATCH, LM_SEQ, LM_SEQ, LM_SEQ, True, "tile"),
+            (4, 1, 320, 300, False, "rows")]:
         h, d = 32, 80
         if tq > 1:
             qkv = torch.randn((3, b, tq, h, d), generator=gen, device="cuda").to(bf16)
@@ -1202,7 +1371,12 @@ def lm_times(torch, gen, x, km, launches):
                     for _ in range(2))
         kw = dict(causal=causal, window=0, softcap=0.0, sm_scale=d ** -0.5,
                   kv_len=kv_len)
-        out = fk.flash_attention(q, k, v, **kw)
+        label = (f"{'prefill' if causal else 'decode'} B={b} H={h} Tq={tq} Tk={tk} "
+                 f"kv_len={kv_len} D={d} bf16{' causal' if causal else ''}, {route}")
+        with forced_route() if route == "tile" else contextlib.nullcontext():
+            out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention,
+                         route, label)
+            ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
         ref = attention_ref(q, k, v, **kw)
         check(bad_count(out, ref, attn_limit(q, k, v, kw, ref)) == 0,
               "attention beyond its limit in phase 7")
@@ -1219,9 +1393,7 @@ def lm_times(torch, gen, x, km, launches):
         nbytes = 2.0 * b * h * d * (2 * tq + 2 * kv_len)   # q, o; k, v read once
         b_ms, b_by = bound(flops, nbytes, "bf16")
         flash.append(report({
-            "case": f"{'prefill' if causal else 'decode'} B={b} H={h} Tq={tq} Tk={tk} "
-                    f"kv_len={kv_len} D={d} bf16{' causal' if causal else ''}",
-            "ms": timed(lambda: fk.flash_attention(q, k, v, **kw)),
+            "case": label, "kernel": route, "ms": ms,
             "plain_ms": timed(lambda: attention_ref(q, k, v, **kw)),
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
             "flops": flops, "bytes": nbytes, "max_abs_err": err}))
@@ -1278,14 +1450,17 @@ def lm_times(torch, gen, x, km, launches):
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in launches.items()}
-               for name in ("flash_attention", "ssd_chunk")}
+               for name in ("flash_attention/wgmma", "flash_attention/tile",
+                            "flash_attention/rows", "ssd_chunk")}
+    attn = {"route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:91"}
     return wide, [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:91",
-         "launches": total("flash_attention"),
-         "launches_by_path": by_path["flash_attention"], "shape": flash[0]["case"],
-         **{key: flash[0][key] for key in keys}, "cases": flash},
+        {"name": f"flash_attention.{row['kernel']}", **attn,
+         "launches": total(f"flash_attention/{row['kernel']}"),
+         "launches_by_path": by_path[f"flash_attention/{row['kernel']}"],
+         "shape": row["case"], **{key: row[key] for key in keys}}
+        for row in flash
+    ] + [
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:77",
@@ -1322,7 +1497,7 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     wide, lm_kernel_lines = lm_times(torch, gen, hx, hkm, lm_launches)
-    assign = kernels[1]
+    assign = kernels[2]
     assign["launches_by_path"] = {"dsarray_kmeans": assign["launches"],
                                   "composition": lm_launches["composition"]["kmeans_assign"]}
     assign["launches"] = sum(assign["launches_by_path"].values())
@@ -1330,7 +1505,8 @@ def main(argv=None) -> int:
                                                      "bound_ms", "bound_by",
                                                      "library_ms", "max_abs_err")},
                        wide]
-    kernels[0]["launches_by_path"] = {"dsarray_kmeans": kernels[0]["launches"]}
+    for gemm in kernels[:2]:
+        gemm["launches_by_path"] = {"dsarray_kmeans": gemm["launches"]}
     kernels += lm_kernel_lines
     print(f"[7] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "
           f"{json.dumps(profiles)}")

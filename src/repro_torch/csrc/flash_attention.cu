@@ -10,19 +10,39 @@
 //
 // What bounds it: at the main path's shape (B = 2, H = 32, T = 4096, D = 80,
 // causal, bf16) one call does 4·B·H·T²·D / 2 = 1.7e11 operations and moves
-// 8 MB per tensor, so it is bound by operations.  This first version runs
-// them as fp32 FMAs on the CUDA cores (67 TFLOP/s on the data sheet, against
-// 989 TFLOP/s of bf16 tensor cores: wgmma is later work).  Its design keeps
-// everything of a (b, h, 64-query) tile on chip: the Q tile, one 64-key K/V
-// tile at a time and the P tile in shared memory (as fp32), and the 64 x D
-// output accumulator, the running max and sum in registers; 16 x 16 threads
-// each own a 4 x 4 block of scores and a 4 x D/16 block of the output, so a
-// shared-memory load feeds several FMAs.  The TPU's sequential KV grid axis
-// becomes the loop over K/V tiles inside the block, which skips the tiles
-// that the causal, window or kv_len masks hide from every row of the tile.
+// 8 MB per tensor, so it is bound by operations.  Three kernels, chosen
+// before the launch by kernels/flash_attention/kernel.py::route:
 //
-// Short queries (decode: Tq = 1) take attn_rows_kernel instead: one block
-// per query row, one key per thread, so no dead query rows are computed.
+// - attn_wgmma_kernel (bf16/f16, D a multiple of 16 up to 256, q/k/v views
+//   that TMA can read): the tensor cores, 989 TFLOP/s.  A block holds
+//   consumer warpgroups of 64 query rows each (3 up to D = 80, 2 up to
+//   D = 128, else 1: as many as the registers hold) and one producer warp
+//   that loads the Q tile once and keeps TMA loads of 64-key
+//   K/V tiles in flight in a ring of 2-4 stages (full/empty mbarriers per
+//   stage).  A consumer runs S = Q·Kᵀ as SS wgmmas (m64n64k16, D/16 of
+//   them), each tile's issued with the previous tile's P·V; the online
+//   softmax on the accumulator
+//   fragment (a row's max reduced across the 4 lanes that hold it, its sum
+//   kept per lane and reduced once at the end); P rounded to V's dtype and
+//   fed from registers as the A operand of RS wgmmas for O += P·V
+//   (m64nDk16).  Only the tiles that the diagonal, the window or kv_len cut
+//   are masked.  D is loaded as 16-wide boxes with the 32-byte swizzle
+//   (K-major for Q and K, MN-major for V), not 64-wide ones: D = 80 is then
+//   exactly five boxes, where 64-wide boxes would pad it to 128 and waste
+//   37 % of P·V.  Kernels exist for D/16 in {2, 3, 4, 5, 6, 8, 10, 12, 16};
+//   another D runs on the next one, its extra chunks zeroed once.
+// - attn_tile_kernel (fp32, other D, views TMA cannot read): fp32 FMAs on
+//   the CUDA cores (67 TFLOP/s).  Everything of a (b, h, 64-query) tile
+//   stays on chip: the Q tile, one 64-key K/V tile at a time and the P tile
+//   in shared memory (as fp32), the 64 x D output accumulator, the running
+//   max and sum in registers; 16 x 16 threads each own a 4 x 4 block of
+//   scores and a 4 x D/16 block of the output.
+// - attn_rows_kernel (decode, Tq <= 8): one block per query row, one key
+//   per thread, so no dead query rows are computed.
+//
+// The TPU's sequential KV grid axis becomes the loop over K/V tiles inside
+// the block, which skips the tiles that the causal, window or kv_len masks
+// hide from every row of the tile.
 //
 // Layouts: q, k, v and o are read and written through their (b, h, t)
 // strides, the last dim contiguous, so permuted (B, T, H, D) views need no
@@ -33,6 +53,10 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -299,6 +323,313 @@ __global__ void __launch_bounds__(ROW_THREADS) attn_rows_kernel(AttnArgs a) {
   if (tid + ROW_THREADS < d) op[tid + ROW_THREADS] = from_f<T>(acc1 / safe);
 }
 
+// ---------------------------------------------------------------------------
+// tensor cores: bf16/f16, D a multiple of 16
+// ---------------------------------------------------------------------------
+
+namespace fa {
+constexpr int BKV = 64;          // keys per K/V tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int KV_CHUNK = BKV * 32;   // bytes of one 16-wide chunk of a K or V tile
+// consumer warpgroups of 64 query rows each, as many as the registers a
+// thread gets hold the O accumulator.  Registers are shared per quarter of
+// the SM, one warp of each warpgroup in each: 3 warpgroups and the
+// producer warp put 4 warps in one quarter and leave 128 registers a
+// thread, 2 leave 168, 1 leaves 255
+template <int NC> __host__ __device__ constexpr int consumers() {
+  return NC <= 5 ? 3 : NC <= 8 ? 2 : 1;
+}
+template <int NC> __host__ __device__ constexpr int threads() { return 128 * consumers<NC>() + 32; }
+template <int NC> __host__ __device__ constexpr int rows() { return 64 * consumers<NC>(); }
+// K/V stages: as many as shared memory holds, up to 4 (<= 225 KB)
+template <int NC> __host__ __device__ constexpr int stages() {
+  return NC <= 8 ? 4 : NC <= 12 ? 3 : 2;
+}
+template <int NC> __host__ __device__ constexpr size_t smem_bytes() {
+  return (size_t)NC * rows<NC>() * 32 + (size_t)stages<NC>() * 2 * NC * KV_CHUNK + 1024;
+}
+}  // namespace fa
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, bool f16) {
+  uint32_t r;
+  if (f16) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    r = *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    r = *reinterpret_cast<uint32_t*>(&h);
+  }
+  return r;
+}
+
+// NC = D_pad / 16 chunks; the tensor maps are rank 4 over (d, t, h, b) with
+// boxes of 16 x 64·CW (Q) and 16 x 64 (K, V), 32-byte swizzle.
+template <typename T, int NC>
+__global__ void __launch_bounds__(fa::threads<NC>(), 1)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, AttnArgs a) {
+  using hopper::make_desc;
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  constexpr int ST = fa::stages<NC>(), CW = fa::consumers<NC>();
+  constexpr int BQ = fa::rows<NC>(), THREADS = fa::threads<NC>();
+  constexpr int DP = 16 * NC;
+  constexpr int Q_CHUNK = BQ * 32;   // bytes of one 16-wide chunk of the Q tile
+  constexpr int Q_BYTES = NC * Q_CHUNK, KV_BYTES = NC * fa::KV_CHUNK;
+  extern __shared__ uint8_t raw[];
+  __shared__ __align__(8) uint64_t q_full, full[ST], empty[ST];
+  uint8_t* qs = raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
+  uint8_t* kvs = qs + Q_BYTES;   // stage s: K at kvs + 2·s·KV_BYTES, V KV_BYTES on
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int qt = gridDim.x - 1 - blockIdx.x;   // the longest (causal) tiles first
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const int hk = h / (a.hq / a.hkv);
+  const int q0 = qt * BQ;
+  const int nc = a.d / 16;   // chunks that hold D; chunks nc..NC-1 stay zero
+
+  // the K/V tiles some row of the block sees
+  const int qlast = min(q0 + BQ, a.tq) - 1;
+  int kbeg, kend;
+  key_range(q0 + a.q_offset, qlast + a.q_offset, a, &kbeg, &kend);
+  const int k_first = kbeg / fa::BKV * fa::BKV;
+  const int nt = kend > k_first ? (kend - k_first + fa::BKV - 1) / fa::BKV : 0;
+
+  if (nc < NC) {   // zero the padding chunks of Q and of every K/V stage
+    for (int e = tid; e < (NC - nc) * Q_CHUNK / 16; e += THREADS)
+      reinterpret_cast<uint4*>(qs + nc * Q_CHUNK)[e] = make_uint4(0, 0, 0, 0);
+    for (int s = 0; s < 2 * ST; ++s)
+      for (int e = tid; e < (NC - nc) * fa::KV_CHUNK / 16; e += THREADS)
+        reinterpret_cast<uint4*>(kvs + s * KV_BYTES + nc * fa::KV_CHUNK)[e] =
+            make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (tid == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CW);   // one arrival per consumer warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CW) {   // the producer warp
+    if (tid == 128 * CW) {
+      hopper::prefetch_map(&mq);
+      hopper::prefetch_map(&mk);
+      hopper::prefetch_map(&mv);
+      hopper::mbar_expect_tx(&q_full, nc * Q_CHUNK);
+      for (int c = 0; c < nc; ++c)
+        hopper::tma_load_4d(qs + c * Q_CHUNK, &mq, &q_full, 16 * c, q0, h, bb);
+      for (int it = 0; it < nt; ++it) {
+        const int st = it % ST;
+        if (it >= ST) hopper::mbar_wait(&empty[st], ((it / ST) - 1) & 1);
+        uint8_t* ks = kvs + 2 * st * KV_BYTES;
+        hopper::mbar_expect_tx(&full[st], 2 * nc * fa::KV_CHUNK);
+        const int k0 = k_first + it * fa::BKV;
+        for (int c = 0; c < nc; ++c) {
+          hopper::tma_load_4d(ks + c * fa::KV_CHUNK, &mk, &full[st], 16 * c, k0, hk, bb);
+          hopper::tma_load_4d(ks + KV_BYTES + c * fa::KV_CHUNK, &mv, &full[st], 16 * c, k0, hk, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64·wg .. + 63
+  const int warp = (tid % 128) / 32, lane = tid % 32, quad = lane % 4;
+  const int qw0 = q0 + 64 * wg;
+  const int row = qw0 + warp * 16 + lane / 4;   // and row + 8
+  int kb_w = 0, ke_w = 0;                       // the keys these rows see
+  if (qw0 < a.tq)
+    key_range(qw0 + a.q_offset, min(qw0 + 63, a.tq - 1) + a.q_offset, a, &kb_w, &ke_w);
+  const int qmin = qw0 + a.q_offset, qmax = qw0 + 63 + a.q_offset;
+
+  // o is not zeroed: the first P·V overwrites it (scale_d = 0)
+  float o[DP / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const uint32_t q_addr = hopper::smem_u32(qs) + wg * 64 * 32;
+  hopper::mbar_wait(&q_full, 0);
+
+  // the tiles these rows see are [t_lo, t_hi); the others are waited for
+  // and released at once, so both warpgroups pass every stage in step
+  int t_lo = 0, t_hi = 0;
+  if (ke_w > kb_w) {
+    t_lo = (kb_w - k_first) / fa::BKV;
+    t_hi = min(nt, (ke_w - k_first + fa::BKV - 1) / fa::BKV);
+  }
+  auto wait_tile = [&](int it) { hopper::mbar_wait(&full[it % ST], (it / ST) & 1); };
+  auto release = [&](int it) {
+    if (tid % 128 == 0) hopper::mbar_arrive(&empty[it % ST]);
+  };
+  auto k_addr = [&](int it) { return hopper::smem_u32(kvs + 2 * (it % ST) * KV_BYTES); };
+  // S = Q·Kᵀ of tile it into s (overwritten): register 4·jn + 2·hh + e holds
+  // row `row + 8·hh`, key k0 + 8·jn + 2·quad + e
+  auto issue_s = [&](float (&s)[fa::BKV / 2], int it) {
+    hopper::fence_regs<fa::BKV / 2>(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      hopper::Wgmma<fa::BKV>::template ss<0, 0, F16>(
+          s, make_desc(q_addr + c * Q_CHUNK, 0, 256, hopper::SWIZZLE_32B),
+          make_desc(k_addr(it) + c * fa::KV_CHUNK, 0, 256, hopper::SWIZZLE_32B), c > 0);
+    hopper::wgmma_commit();
+  };
+  // one tile: S(it) has been issued; it retires with P·V of tile it - 1,
+  // which frees that tile's stage; the softmax of tile it; then P·V of tile
+  // it and Q·Kᵀ of tile it + 1 (into s) go to the tensor cores together
+  auto step = [&](float (&s)[fa::BKV / 2], int it) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<fa::BKV / 2>(s);
+    hopper::fence_regs<DP / 2>(o);
+    if (it > t_lo) release(it - 1);
+    const int k0 = k_first + it * fa::BKV;
+    // masks only where the diagonal, the window or kv_len cut the tile
+    const bool cut = k0 + fa::BKV > a.kv_len || (a.causal && k0 + fa::BKV - 1 > qmin) ||
+                     (a.window > 0 && qmax - k0 >= a.window);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qpos = row + 8 * hh + a.q_offset;
+      // four partial maxima and sums: short dependency chains
+      float mx4[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF}, rs4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < fa::BKV / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 4 * jn + 2 * hh + e;
+          float v = score(s[r], a) * fa::LOG2E;
+          if (cut && !visible(qpos, k0 + 8 * jn + 2 * quad + e, a)) v = NEG_INF;
+          s[r] = v;
+          mx4[(2 * jn + e) % 4] = fmaxf(mx4[(2 * jn + e) % 4], v);
+        }
+      float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = exp2f(m[hh] - m_new);
+#pragma unroll
+      for (int jn = 0; jn < fa::BKV / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 4 * jn + 2 * hh + e;
+          const float p = s[r] > 0.5f * NEG_INF ? exp2f(s[r] - m_new) : 0.f;
+          rs4[(2 * jn + e) % 4] += p;
+          s[r] = p;
+        }
+      // this lane's share of the row sum
+      l[hh] = alpha * l[hh] + ((rs4[0] + rs4[1]) + (rs4[2] + rs4[3]));
+      m[hh] = m_new;
+      if (it > t_lo) {
+#pragma unroll
+        for (int jn = 0; jn < DP / 8; ++jn) {
+          o[4 * jn + 2 * hh] *= alpha;
+          o[4 * jn + 2 * hh + 1] *= alpha;
+        }
+      }
+    }
+    // P rounded to V's type, as the A fragments of 4 slices of 16 keys
+    uint32_t pf[fa::BKV / 4];
+#pragma unroll
+    for (int kk = 0; kk < fa::BKV / 16; ++kk) {
+      pf[4 * kk + 0] = pack2(s[8 * kk + 0], s[8 * kk + 1], F16);
+      pf[4 * kk + 1] = pack2(s[8 * kk + 2], s[8 * kk + 3], F16);
+      pf[4 * kk + 2] = pack2(s[8 * kk + 4], s[8 * kk + 5], F16);
+      pf[4 * kk + 3] = pack2(s[8 * kk + 6], s[8 * kk + 7], F16);
+    }
+    // O += P·V: V is MN-major (D innermost), 16 keys = 512 bytes on
+    const uint32_t v_addr = k_addr(it) + KV_BYTES;
+    hopper::fence_regs<DP / 2>(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < fa::BKV / 16; ++kk)
+      hopper::Wgmma<DP>::template rs<1, F16>(
+          o, pf + 4 * kk, make_desc(v_addr + kk * 512, fa::KV_CHUNK, 256, hopper::SWIZZLE_32B),
+          it > t_lo || kk > 0);
+    hopper::wgmma_commit();
+    if (it + 1 < t_hi) {
+      wait_tile(it + 1);
+      issue_s(s, it + 1);
+    }
+  };
+
+  for (int it = 0; it < t_lo; ++it) {
+    wait_tile(it);
+    release(it);
+  }
+  if (t_lo < t_hi) {
+    float s[fa::BKV / 2];
+    wait_tile(t_lo);
+    issue_s(s, t_lo);
+    for (int it = t_lo; it < t_hi; ++it) step(s, it);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<DP / 2>(o);
+    release(t_hi - 1);
+  }
+  for (int it = t_hi; it < nt; ++it) {
+    wait_tile(it);
+    release(it);
+  }
+
+  T* op = (T*)a.o + bb * a.so[0] + h * a.so[1];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(FULL, sum, 1);
+    sum += __shfl_xor_sync(FULL, sum, 2);
+    const int r = row + 8 * hh;
+    if (r >= a.tq) continue;
+#pragma unroll
+    for (int jn = 0; jn < DP / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jn + 2 * quad + e;
+        // a row that sees no key (its o never written) returns 0
+        const float v = sum > 0.f ? o[4 * jn + 2 * hh + e] / sum : 0.f;
+        if (col < a.d) op[r * a.so[2] + col] = from_f<T>(v);
+      }
+  }
+}
+
+template <typename T, int NC>
+cudaError_t launch_wgmma_nc(const AttnArgs& a, int b, const long long* dims_q,
+                            const long long* dims_kv, cudaStream_t st) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  CUtensorMap mq, mk, mv;
+  const long long* strides[3] = {a.sq, a.sk, a.sv};
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  CUtensorMap* maps[3] = {&mq, &mk, &mv};
+  for (int i = 0; i < 3; ++i) {
+    // byte strides of (t, h, b): the element strides are given as (b, h, t)
+    const long long sb[3] = {strides[i][2] * 2, strides[i][1] * 2, strides[i][0] * 2};
+    cudaError_t err = hopper::encode_4d(maps[i], ptrs[i], F16, i == 0 ? dims_q : dims_kv, sb, 16,
+                                        i == 0 ? fa::rows<NC>() : fa::BKV,
+                                        CU_TENSOR_MAP_SWIZZLE_32B);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t bytes = fa::smem_bytes<NC>();
+  cudaError_t err = cudaFuncSetAttribute(attn_wgmma_kernel<T, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + fa::rows<NC>() - 1) / fa::rows<NC>(), a.hq, b);
+  attn_wgmma_kernel<T, NC><<<grid, fa::threads<NC>(), bytes, st>>>(mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const AttnArgs& a, int b, cudaStream_t st) {
+  const long long dims_q[4] = {a.d, a.tq, a.hq, b};
+  const long long dims_kv[4] = {a.d, a.tk, a.hkv, b};
+  const int nc = a.d / 16;
+  if (nc <= 2) return launch_wgmma_nc<T, 2>(a, b, dims_q, dims_kv, st);
+  if (nc <= 3) return launch_wgmma_nc<T, 3>(a, b, dims_q, dims_kv, st);
+  if (nc <= 4) return launch_wgmma_nc<T, 4>(a, b, dims_q, dims_kv, st);
+  if (nc <= 5) return launch_wgmma_nc<T, 5>(a, b, dims_q, dims_kv, st);
+  if (nc <= 6) return launch_wgmma_nc<T, 6>(a, b, dims_q, dims_kv, st);
+  if (nc <= 8) return launch_wgmma_nc<T, 8>(a, b, dims_q, dims_kv, st);
+  if (nc <= 10) return launch_wgmma_nc<T, 10>(a, b, dims_q, dims_kv, st);
+  if (nc <= 12) return launch_wgmma_nc<T, 12>(a, b, dims_q, dims_kv, st);
+  return launch_wgmma_nc<T, 16>(a, b, dims_q, dims_kv, st);
+}
+
 template <typename T, int NC>
 cudaError_t launch_tile(const AttnArgs& a, int b, cudaStream_t st) {
   constexpr int DP = 16 * NC, DQ = DP + 1;
@@ -326,33 +657,56 @@ cudaError_t launch(const AttnArgs& a, int b, cudaStream_t st) {
 }  // namespace
 
 // strides: 12 element strides, (b, h, t) of q, k, v and o in that order;
-// dtype: 0 f32, 1 bf16, 2 f16 (all four tensors)
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const long long* strides, int b, int hq, int hkv, int tq,
-                                      int tk, int d, int causal, int window, int q_offset,
-                                      int kv_len, float sm_scale, float softcap, int dtype,
-                                      void* stream) {
+// dtype: 0 f32, 1 bf16, 2 f16 (all four tensors).  flash_attention_launch
+// runs the SIMT kernels (attn_rows_kernel for tq <= 8, else
+// attn_tile_kernel); flash_attention_wgmma_launch runs attn_wgmma_kernel
+// (bf16/f16, d a multiple of 16, q/k/v strides and bases that TMA can
+// read: kernels/flash_attention/kernel.py::route checks them).
+#define ATTN_PARAMS                                                                          \
+  const void *q, const void *k, const void *v, void *o, const long long *strides, int b,     \
+      int hq, int hkv, int tq, int tk, int d, int causal, int window, int q_offset,          \
+      int kv_len, float sm_scale, float softcap, int dtype, void *stream
+
+static bool pack_args(AttnArgs* a, ATTN_PARAMS) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || tq <= 0 || tk <= 0 || d <= 0 ||
       d > 256 || kv_len < 0 || kv_len > tk || window < 0 || b > 65535 || hq > 65535)
-    return (int)cudaErrorInvalidValue;
-  AttnArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+    return false;
+  a->q = q; a->k = k; a->v = v; a->o = o;
   for (int i = 0; i < 3; ++i) {
-    a.sq[i] = strides[i];
-    a.sk[i] = strides[3 + i];
-    a.sv[i] = strides[6 + i];
-    a.so[i] = strides[9 + i];
+    a->sq[i] = strides[i];
+    a->sk[i] = strides[3 + i];
+    a->sv[i] = strides[6 + i];
+    a->so[i] = strides[9 + i];
   }
-  a.hq = hq; a.hkv = hkv; a.tq = tq; a.tk = tk; a.d = d;
-  a.causal = causal; a.window = window; a.q_offset = q_offset; a.kv_len = kv_len;
-  a.sm_scale = sm_scale; a.softcap = softcap;
+  a->hq = hq; a->hkv = hkv; a->tq = tq; a->tk = tk; a->d = d;
+  a->causal = causal; a->window = window; a->q_offset = q_offset; a->kv_len = kv_len;
+  a->sm_scale = sm_scale; a->softcap = softcap;
+  return true;
+}
+
+#define ATTN_ARGS \
+  q, k, v, o, strides, b, hq, hkv, tq, tk, d, causal, window, q_offset, kv_len, sm_scale, \
+      softcap, dtype, stream
+
+extern "C" int flash_attention_launch(ATTN_PARAMS) {
+  AttnArgs a;
+  if (!pack_args(&a, ATTN_ARGS)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   switch (dtype) {
-    case 0: err = launch<float>(a, b, st); break;
-    case 1: err = launch<__nv_bfloat16>(a, b, st); break;
-    case 2: err = launch<__half>(a, b, st); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return (int)launch<float>(a, b, st);
+    case 1: return (int)launch<__nv_bfloat16>(a, b, st);
+    case 2: return (int)launch<__half>(a, b, st);
   }
-  return (int)err;
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_wgmma_launch(ATTN_PARAMS) {
+  AttnArgs a;
+  if (!pack_args(&a, ATTN_ARGS) || d % 16 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 1: return (int)launch_wgmma<__nv_bfloat16>(a, b, st);
+    case 2: return (int)launch_wgmma<__half>(a, b, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

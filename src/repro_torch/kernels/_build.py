@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: nvcc's stderr per source (ptxas: registers, shared memory, spills)
+#: nvcc's stderr per source (ptxas: registers, shared memory, spills), kept
+#: as ``lib<name>.log`` beside each library and read back when it is reused
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -59,6 +60,9 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for src in _sources():
             lib = out_dir / f"lib{src.stem}.so"
             if src.stem in _libs or lib.exists():
+                log = lib.with_suffix(".log")
+                if src.stem not in BUILD_LOGS and log.exists():
+                    BUILD_LOGS[src.stem] = log.read_text()
                 continue
             tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -73,6 +77,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 errors.append(f"nvcc failed on {name}.cu (exit "
                               f"{proc.returncode}):\n{stderr}")
                 continue
+            lib.with_suffix(".log").write_text(BUILD_LOGS[name])
             os.replace(tmp, lib)
         if errors:
             raise RuntimeError("\n".join(errors))

@@ -5,8 +5,14 @@ the plain version.  q, k and v are read through their strides (the last dim
 must be contiguous), so the permuted ``(B, T, H, D) -> (B, H, T, D)`` views
 of the models need no copy; the output is allocated as ``(B, Tq, Hq, D)``
 and returned as its ``(B, Hq, Tq, D)`` view, so the models' transpose back
-is free.  ``flash_attention.launches`` counts the calls that launched the
-kernel.
+is free.
+
+``route`` picks the kernel before the launch: ``"rows"`` (Tq <= 8, one
+block per query row), ``"wgmma"`` (tensor cores and TMA: bf16/f16, D a
+multiple of 16 up to 256, q/k/v views TMA can read), else ``"tile"`` (the
+SIMT tile kernel: fp32, other head dims, unaligned strides).
+``flash_attention.launches`` counts the calls that launched a kernel,
+``flash_attention.route_launches`` the same calls by route.
 """
 
 from __future__ import annotations
@@ -19,17 +25,43 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256
+ROW_QUERIES = 8           # Tq up to this takes the rows kernel
+ROUTES = ("rows", "wgmma", "tile")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+_ENTRIES = {"rows": "flash_attention_launch", "tile": "flash_attention_launch",
+            "wgmma": "flash_attention_wgmma_launch"}
 
 
-def _lib():
-    lib = _build.library("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = _ARGTYPES
-        lib.flash_attention_launch.restype = ctypes.c_int
-    return lib
+def _launcher(name: str):
+    fn = getattr(_build.library("flash_attention"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _tma_readable(t: torch.Tensor) -> bool:
+    """TMA reads ``t`` (B, H, T, D) as a rank-4 map: unit stride on D, the
+    other strides (of dims longer than 1) multiples of 16 bytes, a
+    16-byte-aligned base."""
+    es = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or (s * es) % 16 == 0
+                    for n, s in zip(t.shape[:3], t.stride()[:3])))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that attention of these tensors launches (see the module
+    docstring); a function of shapes, dtypes and strides only."""
+    if q.shape[2] <= ROW_QUERIES:
+        return "rows"
+    d = q.shape[3]
+    if (q.dtype in (torch.bfloat16, torch.float16) and d % 16 == 0
+            and d <= MAX_HEAD_DIM and all(map(_tma_readable, (q, k, v)))):
+        return "wgmma"
+    return "tile"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -63,15 +95,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    err = _lib().flash_attention_launch(
+    r = route(q, k, v)
+    err = _launcher(_ENTRIES[r])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(strides), b, hq, hkv, tq, tk, d, int(causal),
         int(window), int(q_offset), kv, float(sm_scale), float(softcap),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_attention ({r}) launch failed with cudaError "
+                           f"{err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[r] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -62,6 +62,105 @@ def test_stacked_matmul_matches_plain(card, dims, dtype, transpose_a):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def _gemm_operands(card, dims, dtype, a_major, b_major, seed):
+    """A as (gi, gk, bn, bk) and B as (gk, gj, bk, bm) views whose innermost
+    dim is K ("k") or M/N ("mn"): the other layouts are permuted views of
+    contiguous storage, read through their strides."""
+    gi, gk, gj, bn, bk, bm = dims
+    g = torch.Generator(device=card).manual_seed(seed)
+    if a_major == "k":
+        a = torch.randn((gi, gk, bn, bk), generator=g, device=card).to(dtype)
+    else:
+        a = torch.randn((gi, gk, bk, bn), generator=g, device=card).to(dtype)
+        a = a.transpose(2, 3)
+    if b_major == "mn":
+        b = torch.randn((gk, gj, bk, bm), generator=g, device=card).to(dtype)
+    else:
+        b = torch.randn((gk, gj, bm, bk), generator=g, device=card).to(dtype)
+        b = b.transpose(2, 3)
+    return a, b
+
+
+def _gemm_close(out, ref, depth):
+    rms = float(ref.float().pow(2).mean().sqrt())
+    atol = 8 * torch.finfo(torch.float32).eps * depth ** 0.5 * rms
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=torch.finfo(out.dtype).eps)
+
+
+def _routed(counter, route, fn):
+    before = dict(counter)
+    out = fn()
+    torch.cuda.synchronize()
+    assert counter[route] == before[route] + 1, (route, before, dict(counter))
+    return out
+
+
+@pytest.mark.parametrize("dims", [
+    (2, 2, 2, 128, 128, 128),      # multiples of the tile
+    (2, 3, 2, 200, 72, 136),       # ragged blocks
+    (1, 2, 1, 40, 24, 56),         # blocks smaller than one tile
+])
+@pytest.mark.parametrize("a_major,b_major", [("k", "mn"), ("mn", "mn"),
+                                             ("k", "k"), ("mn", "k")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_stacked_matmul_wgmma_route(card, dims, a_major, b_major, dtype):
+    """Every combination of K-major and MN-major operands (the descriptors'
+    transpose bits), at the tile, ragged and below one tile: the wgmma
+    route, held to the plain version."""
+    a, b = _gemm_operands(card, dims, dtype, a_major, b_major, seed=sum(dims))
+    p = mk.plan(a, b, sms=132)
+    assert p.route == "wgmma" and p.a.k_major == (a_major == "k")
+    assert p.b.k_major == (b_major == "k")
+    out = _routed(mk.stacked_matmul.route_launches, "wgmma",
+                  lambda: mk.stacked_matmul(a, b, out_dtype=dtype))
+    _gemm_close(out, stacked_matmul_ref(a, b, out_dtype=dtype), dims[1] * dims[4])
+
+
+@pytest.mark.parametrize("dims,transpose_a", [
+    ((1, 16, 1, 128, 2048, 128), False),    # one tile: split-K
+    ((1, 16, 1, 96, 2048, 80), True),
+    ((2, 2, 2, 256, 256, 256), False),      # no split
+])
+def test_stacked_matmul_wgmma_deterministic(card, dims, transpose_a):
+    """Split-K and direct products in bf16: two runs give the same bits."""
+    gi, gk, gj, bn, bk, bm = dims
+    g = torch.Generator(device=card).manual_seed(3)
+    a_shape = (gk, gi, bk, bn) if transpose_a else (gi, gk, bn, bk)
+    a = torch.randn(a_shape, generator=g, device=card).bfloat16()
+    b = torch.randn((gk, gj, bk, bm), generator=g, device=card).bfloat16()
+    av = a.permute(1, 0, 3, 2) if transpose_a else a
+    p = mk.plan(av, b, torch.cuda.get_device_properties(card).multi_processor_count)
+    assert p.route == "wgmma" and (p.splits > 1) == (gi * gj == 1)
+    run = lambda: mk.stacked_matmul(a, b, out_dtype=torch.bfloat16,  # noqa: E731
+                                    transpose_a=transpose_a)
+    first = _routed(mk.stacked_matmul.route_launches, "wgmma", run)
+    assert torch.equal(first, run())
+    ref = stacked_matmul_ref(a, b, out_dtype=torch.bfloat16, transpose_a=transpose_a)
+    _gemm_close(first, ref, gk * bk)
+
+
+@pytest.mark.parametrize("case", ["bk70_bf16", "offset_view", "f32"])
+def test_stacked_matmul_simt_route(card, case):
+    """What TMA cannot read takes the SIMT route: a bk of 70 bf16 (140-byte
+    rows), a view one element off a 16-byte boundary, every fp32 product."""
+    g = torch.Generator(device=card).manual_seed(5)
+    if case == "bk70_bf16":
+        a = torch.randn((2, 3, 50, 70), generator=g, device=card).bfloat16()
+        b = torch.randn((3, 2, 70, 64), generator=g, device=card).bfloat16()
+    elif case == "offset_view":
+        flat = torch.randn(1 + 2 * 2 * 64 * 64, generator=g, device=card).bfloat16()
+        a = flat[1:].view(2, 2, 64, 64)
+        b = torch.randn((2, 2, 64, 64), generator=g, device=card).bfloat16()
+    else:
+        a = torch.randn((2, 2, 128, 128), generator=g, device=card)
+        b = torch.randn((2, 2, 128, 128), generator=g, device=card)
+    assert mk.plan(a, b, sms=132).route == "simt"
+    out = _routed(mk.stacked_matmul.route_launches, "simt",
+                  lambda: mk.stacked_matmul(a, b, out_dtype=a.dtype))
+    _gemm_close(out, stacked_matmul_ref(a, b, out_dtype=a.dtype), a.shape[1] * a.shape[3])
+
+
 def _stack(card, x, bs):
     n, d = x.shape
     bn, bm = bs
@@ -133,11 +232,20 @@ FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff
     (256, 512, 2, 2, 128, True, 128, 50.0, 0),
     (300, 300, 4, 4, 80, True, 0, 0.0, 0),     # zamba2's head dim
     (70, 90, 2, 2, 256, False, 0, 0.0, 0),     # gemma2's head dim
+    (200, 260, 4, 2, 80, True, 0, 0.0, 60),    # D = 80 with q_offset
+    (150, 150, 2, 1, 112, True, 48, 0.0, 0),   # D = 112: a zeroed padding chunk
 ]
 
 
+def _attn_route(q, dtype):
+    tq, d = q.shape[2], q.shape[3]
+    if tq <= 8:
+        return "rows"
+    return "wgmma" if dtype != torch.float32 and d % 16 == 0 else "tile"
+
+
 @pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_attention_matches_plain(card, case, dtype):
     tq, tk, hq, hkv, d, causal, window, cap, qoff = case
     g = torch.Generator(device=card).manual_seed(tq + tk + d)
@@ -146,7 +254,10 @@ def test_flash_attention_matches_plain(card, case, dtype):
     v = torch.randn((2, hkv, tk, d), generator=g, device=card).to(dtype)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff,
               sm_scale=d ** -0.5)
-    got = fk.flash_attention(q, k, v, **kw)
+    r = _attn_route(q, dtype)
+    assert fk.route(q, k, v) == r
+    got = _routed(fk.flash_attention.route_launches, r,
+                  lambda: fk.flash_attention(q, k, v, **kw))
     want = attention_ref(q, k, v, **kw)
     atol = 3e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
@@ -164,6 +275,23 @@ def test_flash_attention_decode_and_strided_views(card, kv_len):
               kv_len=kv_len)
     got = fk.flash_attention(q, k, v, **kw)
     torch.testing.assert_close(got, attention_ref(q, k, v, **kw), atol=3e-5, rtol=0)
+    if kv_len == 0:
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("kv_len", [0, 100, 333])
+def test_flash_attention_wgmma_strided_views(card, kv_len):
+    """The model's prefill layout: (B, T, H, D) projections passed as
+    (B, H, T, D) views, D = 80, causal with kv_len cutting the keys."""
+    g = torch.Generator(device=card).manual_seed(kv_len)
+    x = torch.randn((3, 2, 333, 8, 80), generator=g, device=card).bfloat16()
+    q, k, v = (x[i].transpose(1, 2) for i in range(3))
+    kw = dict(causal=True, window=0, softcap=0.0, sm_scale=80 ** -0.5,
+              q_offset=0, kv_len=kv_len)
+    got = _routed(fk.flash_attention.route_launches, "wgmma",
+                  lambda: fk.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=3e-2, rtol=0)
     if kv_len == 0:
         assert bool((got == 0).all())
 

@@ -109,6 +109,40 @@ def test_attention_on_permuted_views():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
 
 
+@pytest.mark.parametrize("d", [48, 64, 80, 128])
+def test_route_bf16_head_dims_take_wgmma(d):
+    q = torch.zeros((2, 4, 256, d), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 2, 256, d), dtype=torch.bfloat16)
+    assert kernel.route(q, kv, kv) == "wgmma"
+
+
+@pytest.mark.parametrize("case,want", [
+    ("decode", "rows"),             # Tq = 1
+    ("fp32", "tile"),
+    ("d72", "tile"),                # D not a multiple of 16
+    ("d80_unaligned", "tile"),      # a (B, T, H, D) view with 20-byte head stride
+    ("prefill_views", "wgmma"),     # the model's (B, T, H, D) -> (B, H, T, D) views
+])
+def test_route_by_shape_dtype_and_strides(case, want):
+    if case == "decode":
+        q = torch.zeros((4, 32, 1, 80), dtype=torch.bfloat16)
+        kv = torch.zeros((4, 32, 320, 80), dtype=torch.bfloat16)
+        args = (q, kv, kv)
+    elif case == "fp32":
+        q = torch.zeros((2, 32, 4096, 80))
+        args = (q, q, q)
+    elif case == "d72":
+        q = torch.zeros((2, 4, 128, 72), dtype=torch.bfloat16)
+        args = (q, q, q)
+    elif case == "d80_unaligned":
+        x = torch.zeros((2, 128, 4, 90), dtype=torch.bfloat16)[..., :80]
+        args = (x.transpose(1, 2),) * 3
+    else:
+        x = torch.zeros((3, 2, 4096, 32, 80), dtype=torch.bfloat16)
+        args = tuple(x[i].transpose(1, 2) for i in range(3))
+    assert kernel.route(*args) == want
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     t = torch.zeros((1, 1, 4, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):

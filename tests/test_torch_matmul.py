@@ -111,6 +111,96 @@ def test_split_count(tiles, k_steps, out_elems, want):
     assert kernel.split_count(tiles, k_steps, out_elems, sms=132) == want
 
 
+def _main_path_layouts():
+    """The ds-array products of the main path, as the wrapper sees them
+    (``av`` viewed as (gi, gk, bn, bk), ``b`` as (gk, gj, bk, bm)): 8192²
+    with blocks 2048² stacked as (4, 4, 2048, 2048)."""
+    x = torch.empty((4, 4, 2048, 2048), dtype=torch.bfloat16)
+    y = torch.empty((4, 4, 2048, 2048), dtype=torch.bfloat16)
+    return {"contiguous": (x, y),
+            "transpose_a": (x.permute(1, 0, 3, 2), y),
+            "DsArray.T view": (x.permute(1, 0, 3, 2), y)}
+
+
+E = 2                                   # bytes of a bf16
+BLOCK = 2048 * 2048 * E
+
+
+@pytest.mark.parametrize("layout,a_k_major,a_strides", [
+    # A K-major: rows of bk (4096 B), blocks of gk, then gi
+    ("contiguous", True, (2048 * E, BLOCK, 4 * BLOCK)),
+    # Aᵀ read in place: bn innermost, rows of bk 4096 B apart, gk, gi swapped
+    ("transpose_a", False, (2048 * E, 4 * BLOCK, BLOCK)),
+    ("DsArray.T view", False, (2048 * E, 4 * BLOCK, BLOCK)),
+])
+def test_plan_main_path_layouts_take_wgmma(layout, a_k_major, a_strides):
+    av, b = _main_path_layouts()[layout]
+    p = kernel.plan(av, b, sms=132)
+    assert p.route == "wgmma" and p.tile == kernel.WGMMA_TILE and p.splits == 1
+    assert p.a.k_major is a_k_major and p.a.strides == a_strides
+    assert p.a.dims == (2048, 2048, 4, 4)
+    assert p.a.box == ((64, 128) if a_k_major else (64, 64))
+    # B (gk, gj, bk, bm) row-major: N-major, rows of bm, then gj, gk
+    assert p.b.k_major is False and p.b.box == (64, 64)
+    assert p.b.dims == (2048, 2048, 4, 4)
+    assert p.b.strides == (2048 * E, BLOCK, 4 * BLOCK)
+
+
+def test_plan_dsarray_transpose_is_the_strided_view():
+    """``DsArray.T`` hands the GEMM the permuted view the planner sees."""
+    from repro_torch.core import dsarray as dsa
+    x = dsa.from_array(torch.zeros((256, 128), dtype=torch.bfloat16), (64, 64),
+                       device="cpu")
+    assert not x.T.blocks.is_contiguous()
+    p = kernel.plan(x.T.blocks, x.blocks, sms=132)
+    assert p.route == "wgmma" and p.a.k_major is False
+    # bk rows 128 B apart; grid-k (the stored row grid) 2 blocks apart; gi 1
+    assert p.a.strides == (64 * E, 2 * 64 * 64 * E, 64 * 64 * E)
+
+
+@pytest.mark.parametrize("case", ["f32", "bk70_bf16", "offset_view", "int_like"])
+def test_plan_simt_route(case):
+    if case == "f32":
+        a = torch.zeros((4, 4, 2048, 2048))
+        b = torch.zeros((4, 4, 2048, 2048))
+    elif case == "bk70_bf16":            # 140-byte rows: not a multiple of 16
+        a = torch.zeros((2, 3, 50, 70), dtype=torch.bfloat16)
+        b = torch.zeros((3, 2, 70, 64), dtype=torch.bfloat16)
+    elif case == "offset_view":          # base 2 bytes off a 16-byte boundary
+        flat = torch.zeros(1 + 2 * 2 * 64 * 64, dtype=torch.bfloat16)
+        a = flat[1:].view(2, 2, 64, 64)
+        b = torch.zeros((2, 2, 64, 64), dtype=torch.bfloat16)
+    else:                                # neither of A's last two dims unit-stride
+        a = torch.zeros((2, 2, 64, 64, 2), dtype=torch.bfloat16)[..., 0]
+        b = torch.zeros((2, 2, 64, 64), dtype=torch.bfloat16)
+    p = kernel.plan(a, b, sms=132)
+    assert p.route == "simt" and p.tile == kernel.SIMT_TILE
+    assert p.a is None and p.b is None
+
+
+@pytest.mark.parametrize("dims,splits", [
+    ((1, 31, 1, 100, 262144, 100), 528),   # the 8 M x 100 Gram (f32): 4 blocks/SM
+    ((1, 16, 1, 128, 2048, 128), 8),       # one bf16 tile: >= 64 K steps a split
+    ((4, 4, 4, 2048, 2048, 2048), 1),      # 8192²: the tiles fill the card
+])
+def test_plan_split_count(dims, splits):
+    gi, gk, gj, bn, bk, bm = dims
+    dt = torch.float32 if bk == 262144 else torch.bfloat16
+    a = torch.empty((gi, gk, bn, bk), dtype=dt)
+    b = torch.empty((gk, gj, bk, bm), dtype=dt)
+    assert kernel.plan(a, b, sms=132).splits == splits
+
+
+def test_plan_normalises_size_one_dims():
+    """A dim of size 1 has no stride to check; the map gets the packed one."""
+    a = torch.zeros((1, 1, 64, 48), dtype=torch.float16)
+    b = torch.zeros((1, 1, 48, 40), dtype=torch.float16)
+    p = kernel.plan(a, b, sms=132)
+    assert p.route == "wgmma"
+    assert p.a.strides == (96, 96 * 64, 96 * 64)
+    assert p.b.strides == (80, 80 * 48, 80 * 48)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The CUDA wrapper checks its inputs before it touches the library, so
     a CPU tensor never reaches the kernel."""
