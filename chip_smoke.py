@@ -10,8 +10,8 @@ raises and the script exits non-zero):
 1. card and precision: the card, its power limit, the TF32 switches (off);
 2. build: the four CUDA sources (one nvcc each, in parallel), with the
    build seconds and ptxas' report, per kernel for the Hopper redesign
-   (``wgmma_kernel``, ``attn_wgmma_kernel``, ``simt_kernel``), which must
-   show no spills;
+   (``wgmma_kernel``, ``attn_wgmma_kernel``, ``simt_kernel``,
+   ``ssd_mma_kernel``), which must show no spills;
 3. kernel vs plain on the card, each call checked to take the route its
    layout implies (the wrappers count launches by route):
    ``stacked_matmul`` on the SIMT route in f32/bf16/f16 (ragged blocks,
@@ -29,11 +29,16 @@ raises and the script exits non-zero):
    80, 112 and 256 in f32 (SIMT tile), bf16 and f16 (wgmma), at the LM
    path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16),
    D = 80 with q_offset and kv_len, and the decode shape (Tq = 1,
-   kv_len < Tk, the rows kernel); ``ssd_chunk`` + ``ssd_scan`` at the
-   LM path's shape (B·H = 160, T = 4096, L = 128, P = S = 64) with fast and
-   slow decay and ``h0``; each against a limit from its output's precision
-   and reduction depth that a zeroed output, attention without its causal
-   mask and an SSD without its inter-chunk term must fail;
+   kv_len < Tk, the rows kernel); ``ssd_chunk`` alone at the LM path's
+   shape (B·H = 160, T = 4096, L = 128, P = S = 64) on the mma route (3xTF32
+   tensor cores) and forced onto the simt route, fast and slow decay, every
+   output within the card test's tolerance of the plain chunk, which the
+   plain chunk fed TF32-rounded x, B and C must fail; ``ssd_chunk`` +
+   ``ssd_scan`` at that shape with fast and slow decay and ``h0`` and at
+   two small shapes, all on the mma route; each against a limit from its
+   output's precision and reduction depth that a zeroed output, attention
+   without its causal mask and an SSD without its inter-chunk term must
+   fail;
 4. the ds-array main path at a size K-means users run: 8,000,000 x 100 fp32
    samples in 64 Gaussian blobs, blocks (262,144 x 100): ``from_array`` ->
    ``mean(axis=0)`` -> ``matmul_ta(x, x)``; 8192² ``A @ B`` and
@@ -56,7 +61,8 @@ raises and the script exits non-zero):
    Mamba layer the identity).  Each step below zeroes the launch counts
    before and checks them after (9 attention and 54 SSD launches per
    forward, all 9 attention launches of a bf16 forward on the wgmma route,
-   9 attention launches per decoded token on the rows kernel):
+   every SSD launch on the mma route, 9 attention launches per decoded
+   token on the rows kernel):
    ``forward`` on B = 2, T = 4096, its logits against the same forward with
    the plain attention and SSD swapped in, then timed (median of 3 warm
    runs); the float32 model at T = 64, ``decode_step`` teacher-forced
@@ -70,9 +76,13 @@ raises and the script exits non-zero):
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` through the D-tiled
    ``kmeans_assign``;
 7. times of ``flash_attention`` (prefill on the wgmma route and, forced,
-   on the SIMT tile kernel; decode), ``ssd_chunk`` and the D-tiled
-   ``kmeans_assign`` at the LM path's shapes (the SSD chunk's bound counts
-   the causal half of its L x L products), the LM path's wall times, and a
+   on the SIMT tile kernel; decode), ``ssd_chunk`` (the mma route and,
+   forced, the simt route) and the D-tiled ``kmeans_assign`` at the LM
+   path's shapes (the SSD chunk's bounds count the causal half of its L x L
+   products: three TF32 products per fp32 one for the mma route, fp32 for
+   the simt route), the check that
+   the main paths launched ``ssd_chunk`` 972 times on the mma route and
+   never on the simt route, the LM path's wall times, and a
    ``torch.profiler`` breakdown (device time by kernel group, the device's
    busy share) of one forward, 8 decode steps and one D-tiled assign.
 
@@ -92,9 +102,9 @@ import subprocess
 import sys
 import time
 
-# NVIDIA H100 SXM data sheet (dense): fp32 on CUDA cores, bf16/f16 on tensor
-# cores, HBM3 bandwidth
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "f16": 989e12}
+# NVIDIA H100 SXM data sheet (dense): fp32 on CUDA cores, tf32/bf16/f16 on
+# tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "f16": 989e12}
 PEAK_BYTES = 3.35e12
 
 N_ROWS, N_FEATURES, N_CLUSTERS = 8_000_000, 100, 64
@@ -349,24 +359,27 @@ class forced_plan:
 
 class forced_route:
     """Within the block, every GEMM takes the SIMT route (the script patches
-    ``tma_operand``, so ``plan`` finds no TMA-readable operand) and every
-    attention of more than 8 queries the SIMT tile kernel (it patches
-    ``route``): the routes the bf16 main path took before the tensor-core
-    kernels, timed beside them in one run.  The package has no such
-    option."""
+    ``tma_operand``, so ``plan`` finds no TMA-readable operand), every
+    attention of more than 8 queries the SIMT tile kernel and every SSD
+    chunk the simt kernel (it patches both ``route`` functions): the routes
+    the main path took before the tensor-core kernels, timed beside them in
+    one run.  The package has no such option."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.matmul import kernel as mk
-        self.saved = (mk.tma_operand, fk.route)
+        from repro_torch.kernels.ssd import kernel as sk
+        self.saved = (mk.tma_operand, fk.route, sk.route)
         mk.tma_operand = lambda *args: None
         fk.route = lambda q, k, v: "rows" if q.shape[2] <= fk.ROW_QUERIES else "tile"
+        sk.route = lambda *args: "simt"
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.matmul import kernel as mk
-        mk.tma_operand, fk.route = self.saved
+        from repro_torch.kernels.ssd import kernel as sk
+        mk.tma_operand, fk.route, sk.route = self.saved
         return False
 
 
@@ -405,14 +418,13 @@ def ssd_check(args, chunk: int, what: str):
     exp(ℓ_t − ℓ_s) or exp(ℓ_t), on either side, within a relative L·eps·Λ
     (the kernel adds in sequence, torch.cumsum on the card in another
     order).  A zeroed output and the scan without its inter-chunk term must
-    fail.  Returns (max abs err of y, of h_final)."""
+    fail.  The scan launches ``ssd_chunk`` once, by the mma route.  Returns
+    (max abs err of y, of h_final)."""
     import torch
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd.ops import ssd_scan
     x, dt, a, b, c, h0 = args
-    before = sk.ssd_chunk.launches
-    y, h = ssd_scan(*args, chunk=chunk)
-    check(sk.ssd_chunk.launches == before + 1, f"{what}: ssd_chunk did not launch")
+    y, h = routed(lambda: ssd_scan(*args, chunk=chunk), sk.ssd_chunk, "mma", what)
     with plain_kernels():
         y_ref, h_ref = ssd_scan(*args, chunk=chunk)
         mag_y, mag_h = ssd_scan(x.abs(), dt, a, b.abs(), c.abs(), h0.abs(),
@@ -435,6 +447,33 @@ def ssd_check(args, chunk: int, what: str):
     print(f"[3] {what}: Λ = {lam:.1f}; max abs err y {errs[0]:.3e}, h "
           f"{errs[1]:.3e}; controls fail at {controls} of {y_ref.numel()}")
     return errs
+
+
+def ssd_chunk_check(args, chunk: int, route: str, what: str, phase: int = 3) -> float:
+    """``ssd_chunk`` by ``route`` against ``ssd_chunk_ref``: every output
+    within the card test's tolerance (``test_ssd_chunk_matches_plain``:
+    atol 2e-5·max(1, max|ref|), rtol 1e-5).  Control that must fail: the
+    plain chunk fed TF32-rounded x, B and C, the error of single-pass TF32
+    products.  Returns the max abs error over the outputs."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    x, dt, a, b, c = args
+    got = routed(lambda: sk.ssd_chunk(*args, chunk=chunk), sk.ssd_chunk, route, what)
+    want = ssd_chunk_ref(*args, chunk=chunk)
+    control = ssd_chunk_ref(tf32(x), dt, a, tf32(b), tf32(c), chunk=chunk)
+    bad, ctrl, errs = {}, {}, []
+    for name, g, w, k in zip(("y_intra", "states", "c_dec", "decay"), got, want,
+                             control):
+        limit = 2e-5 * max(1.0, float(w.abs().max())) + 1e-5 * w.double().abs()
+        bad[name], ctrl[name] = bad_count(g, w, limit), bad_count(k, w, limit)
+        errs.append(float((g - w).abs().max()))
+    check(not any(bad.values()), f"{what}: elements beyond the card test's "
+                                 f"tolerance {bad}")
+    check(ctrl["y_intra"] > 0 and ctrl["states"] > 0,
+          f"{what}: control 'TF32-rounded x, B, C' passed: {ctrl}")
+    print(f"[{phase}] {what}: max abs err {dict(zip(bad, errs))}; the TF32 control "
+          f"fails at {ctrl}", flush=True)
+    return max(errs)
 
 
 def ssd_inputs(torch, gen, bh, bg, t, p, s, slow: bool):
@@ -489,17 +528,22 @@ def lm_kernels():
             "kmeans_assign": kk.kmeans_assign_stacked}
 
 
+ROUTED = ("flash_attention", "ssd_chunk")
+
+
 def zero_counts() -> None:
     for fn in lm_kernels().values():
         fn.launches = 0
-    fa = lm_kernels()["flash_attention"]
-    fa.route_launches = dict.fromkeys(fa.route_launches, 0)
+    for name in ROUTED:
+        fn = lm_kernels()[name]
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_counts():
     counts = {name: fn.launches for name, fn in lm_kernels().items()}
-    routes = lm_kernels()["flash_attention"].route_launches
-    counts.update({f"flash_attention/{r}": n for r, n in routes.items()})
+    for name in ROUTED:
+        counts.update({f"{name}/{r}": n
+                       for r, n in lm_kernels()[name].route_launches.items()})
     return counts
 
 
@@ -530,7 +574,7 @@ def phase_card(torch):
 
 
 #: kernels of the Hopper redesign, whose ptxas report must show no spills
-NEW_KERNELS = ("wgmma_kernel", "attn_wgmma_kernel", "simt_kernel")
+NEW_KERNELS = ("wgmma_kernel", "attn_wgmma_kernel", "simt_kernel", "ssd_mma_kernel")
 
 
 def ptxas_entries(log: str):
@@ -757,6 +801,15 @@ def phase_lm_kernels(torch, gen):
     else:
         raise RuntimeError("chip_smoke check failed: int32 attention did not raise")
 
+    # the chunk alone at the LM path's shape, on both routes
+    for slow in (False, True):
+        args = ssd_inputs(torch, gen, 160, 2, LM_SEQ, 64, 64, slow)[:5]
+        for route in sk.ROUTES:
+            with forced_route() if route == "simt" else contextlib.nullcontext():
+                ssd_chunk_check(args, 128, route, f"ssd_chunk BH=160 (B, C per 80 heads) "
+                                f"T={LM_SEQ} L=128 P=S=64 {'slow' if slow else 'fast'} "
+                                f"decay, {route}")
+        del args
     for bh, bg, t, chunk, slow, with_h0 in [(160, 2, LM_SEQ, 128, False, True),
                                             (160, 2, LM_SEQ, 128, True, True),
                                             (6, 2, 300, 64, True, False),
@@ -1030,7 +1083,7 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
 KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                                       "attn_wgmma_kernel")),
                  ("stacked_matmul", ("wgmma_kernel", "simt_kernel", "splitk_reduce")),
-                 ("ssd_chunk", ("ssd_chunk_kernel",)),
+                 ("ssd_chunk", ("ssd_chunk_kernel", "ssd_mma_kernel")),
                  ("kmeans_assign", ("kmeans_",)),
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
 
@@ -1096,7 +1149,8 @@ def lm_path(torch, gen):
     # a bf16 forward's 9 attention launches all take the tensor-core route
     per_fwd = {"flash_attention": ATTN_PER_FORWARD, "ssd_chunk": SSD_PER_FORWARD,
                "flash_attention/wgmma": ATTN_PER_FORWARD, "flash_attention/tile": 0,
-               "flash_attention/rows": 0}
+               "flash_attention/rows": 0, "ssd_chunk/mma": SSD_PER_FORWARD,
+               "ssd_chunk/simt": 0}
     with torch.inference_mode():
         params = model.init(gen, "cuda")
         redraw_norms(params, gen)
@@ -1175,7 +1229,7 @@ def lm_path(torch, gen):
         launches["decode_f32"] = read_counts()
         expect_counts(launches["decode_f32"],
                       {"flash_attention": ATTN_PER_FORWARD * (1 + DECODE_SEQ),
-                       "ssd_chunk": SSD_PER_FORWARD,
+                       "ssd_chunk": SSD_PER_FORWARD, "ssd_chunk/mma": SSD_PER_FORWARD,
                        "flash_attention/tile": ATTN_PER_FORWARD,     # float32
                        "flash_attention/rows": ATTN_PER_FORWARD * DECODE_SEQ},
                       f"float32 forward + {DECODE_SEQ} decode steps")
@@ -1291,6 +1345,7 @@ def lm_path(torch, gen):
                   {"flash_attention": ATTN_PER_FORWARD * HIDDEN_BATCHES,
                    "flash_attention/wgmma": ATTN_PER_FORWARD * HIDDEN_BATCHES,
                    "ssd_chunk": SSD_PER_FORWARD * HIDDEN_BATCHES,
+                   "ssd_chunk/mma": SSD_PER_FORWARD * HIDDEN_BATCHES,
                    "kmeans_assign": km.n_iter_ + 1},
                   f"{HIDDEN_BATCHES} forward_hidden + KMeans fit/predict/score")
     iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
@@ -1399,13 +1454,16 @@ def lm_times(torch, gen, x, km, launches):
             "flops": flops, "bytes": nbytes, "max_abs_err": err}))
         del q, k, v
 
-    # SSD chunk at the model's shape: B·H = 160 rows, B and C per group (B·G = 2)
+    # SSD chunk at the model's shape: B·H = 160 rows, B and C per group (B·G =
+    # 2), on the mma route and, forced, on the simt route it replaced
     bh, bg, t, L, p, s = LM_BATCH * 80, LM_BATCH, LM_SEQ, 128, 64, 64
     args = ssd_inputs(torch, gen, bh, bg, t, p, s, slow=False)[:5]
-    got = sk.ssd_chunk(*args, chunk=L)
-    want = ssd_chunk_ref(*args, chunk=L)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    del got, want
+    label = f"ssd_chunk BH={bh} (B, C per 80 heads) T={t} L={L} P={p} S={s} f32"
+    err = ssd_chunk_check(args, L, "mma", f"{label}, mma", phase=7)
+    ms = timed(lambda: sk.ssd_chunk(*args, chunk=L))
+    with forced_route():
+        ssd_chunk_check(args, L, "simt", f"{label}, simt (forced)", phase=7)
+        simt_ms = timed(lambda: sk.ssd_chunk(*args, chunk=L))
     nc = t // L
     # C·Bᵀ and W·X over the causal half (the L(L+1)/2 pairs s <= t), then
     # the chunk state (B ⊙ decay)ᵀ·X
@@ -1413,14 +1471,22 @@ def lm_times(torch, gen, x, km, launches):
     # inputs x, dt, a, B and C once per group; outputs y, states, C·exp(ℓ), decay
     nbytes = 4.0 * (bh * t * p + bh * t + bh + 2 * bg * t * s
                     + bh * t * p + bh * nc * s * p + bh * t * s + bh * nc)
-    b_ms, b_by = bound(flops, nbytes, "fp32")
+    # each route at the rate of the units it runs on: the mma route issues
+    # three TF32 products (3xTF32) per fp32 one, the simt route fp32 FMAs
+    b_ms, b_by = bound(3 * flops, nbytes, "tf32")
+    simt_b_ms, simt_b_by = bound(flops, nbytes, "fp32")
     ssd = report({
-        "case": f"ssd_chunk BH={bh} (B, C per 80 heads) T={t} L={L} P={p} S={s} f32",
-        "ms": timed(lambda: sk.ssd_chunk(*args, chunk=L)),
+        "case": label, "kernel": "mma", "ms": ms, "simt_ms": simt_ms,
         "plain_ms": timed(lambda: ssd_chunk_ref(*args, chunk=L)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "simt_bound_ms": simt_b_ms, "simt_bound_by": simt_b_by, "flops": flops,
         "bytes": nbytes, "max_abs_err": err})
+    print(f"[7] ssd_chunk forced onto simt: {simt_ms:.3f} ms, bound "
+          f"{simt_b_ms:.3f} ms by {simt_b_by} (fp32)", flush=True)
     del args
+    routes = {r: total(f"ssd_chunk/{r}") for r in sk.ROUTES}
+    check(routes == {"mma": SSD_PER_FORWARD * (2 + HIDDEN_BATCHES), "simt": 0},
+          f"main paths launched ssd_chunk by route {routes}")
 
     # kmeans_assign, D-tiled, on the hidden states and their fitted centers
     blocks = x.blocks
@@ -1451,7 +1517,7 @@ def lm_times(torch, gen, x, km, launches):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in launches.items()}
                for name in ("flash_attention/wgmma", "flash_attention/tile",
-                            "flash_attention/rows", "ssd_chunk")}
+                            "flash_attention/rows", "ssd_chunk/mma")}
     attn = {"route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:91"}
     return wide, [
@@ -1461,11 +1527,12 @@ def lm_times(torch, gen, x, km, launches):
          "shape": row["case"], **{key: row[key] for key in keys}}
         for row in flash
     ] + [
-        {"name": "ssd_chunk", "route": "cuda",
+        {"name": "ssd_chunk.mma", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd/kernel.py:77",
-         "launches": total("ssd_chunk"), "launches_by_path": by_path["ssd_chunk"],
-         "shape": ssd["case"], **{key: ssd[key] for key in keys}},
+         "launches": total("ssd_chunk"), "launches_by_route": routes,
+         "launches_by_path": by_path["ssd_chunk/mma"], "shape": ssd["case"],
+         **{key: ssd[key] for key in keys + ("kernel", "simt_ms", "simt_bound_ms", "simt_bound_by")}},
     ]
 
 

@@ -317,11 +317,22 @@ def _ssd_inputs(card, bh, bg, t, p, s, slow, seed):
 @pytest.mark.parametrize("bh,bg,t,p,s,chunk", [
     (4, 4, 256, 64, 32, 64), (3, 3, 64, 16, 8, 32), (1, 1, 32, 128, 128, 16),
     (8, 1, 512, 64, 64, 128),      # zamba2: one group of B, C for all heads
+    (2, 2, 96, 16, 12, 24),        # S = 12, chunk 24: the simt route by the rule
 ])
 @pytest.mark.parametrize("slow", [True, False])
-def test_ssd_chunk_matches_plain(card, bh, bg, t, p, s, chunk, slow):
+@pytest.mark.parametrize("forced", [None, "simt"])
+def test_ssd_chunk_matches_plain(card, monkeypatch, bh, bg, t, p, s, chunk, slow,
+                                 forced):
+    """Each shape on the route the rule gives it, and forced onto simt by
+    patching ``route`` (the package has no such option)."""
     x, dt, a, b, c, _ = _ssd_inputs(card, bh, bg, t, p, s, slow, seed=t + p)
-    got = sk.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    r = sk.route(x, dt, b, c, chunk)
+    assert r == ("mma" if chunk % 16 == 0 and s % 8 == 0 else "simt")
+    if forced:
+        monkeypatch.setattr(sk, "route", lambda *args: forced)
+        r = forced
+    got = _routed(sk.ssd_chunk.route_launches, r,
+                  lambda: sk.ssd_chunk(x, dt, a, b, c, chunk=chunk))
     want = ssd_chunk_ref(x, dt, a, b, c, chunk=chunk)
     for name, g_, w_ in zip(("y_intra", "states", "c_dec", "decay"), got, want):
         scale = max(1.0, float(w_.abs().max()))

@@ -5,7 +5,9 @@ the inter-chunk recurrence) against ``ssd_scan(interpret=True)`` and the
 sequential ``ssd_ref`` on the cases of ``tests/test_kernels.py`` (atol
 2e-4), the chunk-local plain version against all four outputs of
 ``ssd_chunk_padded(interpret=True)``, and ``ssd_decode_step`` (atol 1e-4).
-The CUDA kernel itself runs only on the card.
+The CUDA kernels themselves run only on the card; here ``kernel.route``
+picks between them on CPU tensors, and the precision of the ``mma`` route's
+3xTF32 products is emulated by rounding mantissas to TF32's 10 bits.
 """
 
 import jax.numpy as jnp
@@ -124,3 +126,85 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, dt, a, b, c, _ = _inputs(1, 16, 4, 4, seed=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.ssd_chunk(*map(torch.from_numpy, (x, dt, a, b, c)), chunk=16)
+
+
+def _route_args(bh, bg, t, p, s, b_pitch=None):
+    x, dt = torch.empty((bh, t, p)), torch.empty((bh, t))
+    b = torch.empty((bg, t, b_pitch or s))[..., :s]
+    return x, dt, b, torch.empty((bg, t, s))
+
+
+@pytest.mark.parametrize("args,chunk,want", [
+    (_route_args(160, 2, 4096, 64, 64), 128, "mma"),    # zamba2's main path
+    (_route_args(4, 4, 96, 16, 16), 32, "mma"),
+    (_route_args(4, 4, 96, 16, 12), 32, "simt"),        # S = 12
+    (_route_args(4, 4, 96, 16, 16), 24, "simt"),        # chunk = 24
+    (_route_args(4, 4, 96, 16, 16, b_pitch=18), 32, "simt"),  # B rows 18 floats apart
+])
+def test_route(args, chunk, want):
+    assert kernel.route(*args, chunk) == want
+
+
+def test_route_refuses_non_f32():
+    """No route takes non-f32: the wrapper refuses it before ``route``."""
+    x, dt, b, c = _route_args(4, 4, 96, 16, 16)
+    with pytest.raises(TypeError, match="f32"):
+        kernel.ssd_chunk(x.bfloat16(), dt, torch.empty(4), b, c, chunk=32)
+
+
+def _tf32(t):
+    """``t`` rounded to TF32's 10-bit mantissa, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the mma route computes it: hi = rna(v), lo = rna(v - hi),
+    the cross terms hi·lo' + lo·hi' summed before hi·hi'."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return (ahi @ blo + alo @ bhi) + ahi @ bhi
+
+
+def _chunk_products(mm, x, dt, a, b, c, chunk):
+    """y_intra and the chunk states of ``ssd_chunk_ref`` with each of the
+    three products computed by ``mm``, the gate and dt folded into W as the
+    mma kernel folds them."""
+    bh, t, p = x.shape
+    s, nc = b.shape[-1], t // chunk
+    xc, dtc = x.reshape(bh, nc, chunk, p), dt.reshape(bh, nc, chunk)
+    bc, cc = b.reshape(bh, nc, chunk, s), c.reshape(bh, nc, chunk, s)
+    ell = torch.cumsum(a[:, None, None] * dtc, dim=2)
+    tri = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    diff = torch.where(tri, ell[..., :, None] - ell[..., None, :], 0.0)
+    w = mm(cc, bc.transpose(-1, -2)) * torch.where(tri, torch.exp(diff), 0.0)
+    y = mm(w * dtc[..., None, :], xc)
+    w_end = torch.exp(ell[..., -1:] - ell) * dtc
+    states = mm((bc * w_end[..., None]).transpose(-1, -2), xc)
+    return y.reshape(bh, t, p), states
+
+
+def _beyond_card_tolerance(got, want):
+    """Elements beyond the card test's limit (``test_ssd_chunk_matches_plain``:
+    atol 2e-5·max(1, max|ref|), rtol 1e-5)."""
+    atol = 2e-5 * max(1.0, float(want.abs().max()))
+    return int(((got - want).abs() > atol + 1e-5 * want.abs()).sum())
+
+
+@pytest.mark.parametrize("slow", [True, False])
+def test_3xtf32_products_meet_the_card_tolerance_and_1xtf32_does_not(slow):
+    """The mma route's precision design: the plain chunk's three products in
+    emulated 3xTF32 stay within the card test's tolerance of
+    ``ssd_chunk_ref``; in single TF32 they do not."""
+    x, dt, a, b, c, _ = map(torch.from_numpy, _inputs(4, 256, 64, 64, seed=7, slow=slow))
+    y_ref, states_ref, _, _ = ssd_chunk(x, dt, a, b, c, chunk=128)
+    y3, states3 = _chunk_products(_mm_3xtf32, x, dt, a, b, c, 128)
+    y1, states1 = _chunk_products(_mm_1xtf32, x, dt, a, b, c, 128)
+    assert _beyond_card_tolerance(y3, y_ref) == 0
+    assert _beyond_card_tolerance(states3, states_ref) == 0
+    assert _beyond_card_tolerance(y1, y_ref) > 0
+    assert _beyond_card_tolerance(states1, states_ref) > 0
