@@ -11,7 +11,8 @@ raises and the script exits non-zero):
 2. build: the four CUDA sources (one nvcc each, in parallel), with the
    build seconds and ptxas' report, per kernel for the Hopper redesign
    (``wgmma_kernel``, ``attn_wgmma_kernel``, ``simt_kernel``,
-   ``ssd_mma_kernel``), which must show no spills;
+   ``ssd_mma_kernel``, ``kmeans_mma_kernel``), which must show no spills
+   and no stack frame (no local memory);
 3. kernel vs plain on the card, each call checked to take the route its
    layout implies (the wrappers count launches by route):
    ``stacked_matmul`` on the SIMT route in f32/bf16/f16 (ragged blocks,
@@ -22,9 +23,18 @@ raises and the script exits non-zero):
    ``kmeans_assign`` with ragged n,
    gm > 1, k not a multiple of 8, k·d past one block's shared memory
    (centers staged in chunks, the partial in global scratch), rows of 2,560
-   and 4,096 features (the D-tiled layout), and the D-tiled layout forced on
-   narrow rows, whose labels must equal the whole-row layout's bit for bit,
-   and k = 2000 (the sums pass with its partial in global memory);
+   and 4,096 features (the D-tiled layout), k = 2000 (the sums pass with
+   its partial in global memory), k = 128 and d = 128 (rows at a pitch
+   of 136) in one block column and in two, each on the route the rule
+   gives it (mma: 3xTF32 tensor cores, resident or streamed, one block
+   column only) and forced onto simt, an mma call run twice for the same
+   bits; uncentred blobs (features near 100) on the mma route, which the
+   same expansion with single-TF32 products must fail; 131,072 centred
+   random rows on the mma route, which the plain version fed TF32-rounded
+   x and centers must fail; the simt D-tiled layout forced on
+   narrow rows, whose labels must equal the whole-row layout's bit for
+   bit, and the mma route's streamed form, whose labels and counts must
+   equal its resident form's;
    ``flash_attention`` on the cases of ``tests/test_kernels.py`` and D of
    80, 112 and 256 in f32 (SIMT tile), bf16 and f16 (wgmma), at the LM
    path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16),
@@ -46,7 +56,8 @@ raises and the script exits non-zero):
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` fit, predict and score.
    The launch counts are zeroed just before and read just after (the two
    bf16 products must take the wgmma route, the f32 ones and the Gram the
-   SIMT route), and every result is checked against a plain or float64
+   SIMT route, every ``kmeans_assign`` the mma route), and every result is
+   checked against a plain or float64
    version; a zeroed product and products of bf16- or TF32-rounded inputs
    must fail the GEMM check;
 5. times at that path's shapes (median of 7 CUDA-event timed runs after a
@@ -54,6 +65,8 @@ raises and the script exits non-zero):
    launch latency is not counted) beside the bound the card's data sheet
    gives, and its wall times; the bf16 products also on the SIMT route
    (forced, as before the tensor-core kernel), in the same run;
+   ``kmeans_assign`` at the fit's shape on the mma route (resident) and
+   forced onto simt, each against its own bound;
 6. the LM path: zamba2-2.7b at its published widths (54 Mamba-2 layers, the
    shared attention block after every 6), bf16, random weights from
    ``--seed`` with every norm scale, ``conv_b`` and ``dt_bias`` redrawn (the
@@ -73,18 +86,21 @@ raises and the script exits non-zero):
    the composition: the
    ``forward_hidden`` states of 16 batches of (2, 4096) tokens (131,072 x
    2,560 fp32) as a ds-array with blocks (8192, 2560), clustered by
-   ``KMeans(64, max_iter=20, tol=1e-4, seed=0)`` through the D-tiled
-   ``kmeans_assign``;
+   ``KMeans(64, max_iter=20, tol=1e-4, seed=0)``, every ``kmeans_assign``
+   on the mma route (streamed);
 7. times of ``flash_attention`` (prefill on the wgmma route and, forced,
    on the SIMT tile kernel; decode), ``ssd_chunk`` (the mma route and,
-   forced, the simt route) and the D-tiled ``kmeans_assign`` at the LM
-   path's shapes (the SSD chunk's bounds count the causal half of its L x L
+   forced, the simt route) and ``kmeans_assign`` (the mma route and,
+   forced, the simt route's D-tiled layout) at the LM path's shapes (the
+   SSD chunk's bounds count the causal half of its L x L
    products: three TF32 products per fp32 one for the mma route, fp32 for
    the simt route), the check that
    the main paths launched ``ssd_chunk`` 972 times on the mma route and
-   never on the simt route, the LM path's wall times, and a
-   ``torch.profiler`` breakdown (device time by kernel group, the device's
-   busy share) of one forward, 8 decode steps and one D-tiled assign.
+   never on the simt route (and ``kmeans_assign`` only on the mma route),
+   the LM path's wall times, and a ``torch.profiler`` breakdown (device
+   time by kernel group, the device's busy share) of one forward, 8 decode
+   steps and one assign at the composition's shape (its labels kernel and
+   its sums pass apart).
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -215,15 +231,15 @@ def sq_dists(rows, centers):
             + (centers * centers).sum(1)[None])
 
 
-def check_labels(rows, centers, got, want, what: str):
-    """Holds ``got`` to ``want`` up to near-ties; returns (near_ties, err).
+def label_faults(rows, centers, got, want):
+    """(near_ties, others, cap, err) of ``got`` against ``want``.
 
     ``err`` is the largest |fp32 − float64| of the distances of the first
     SAMPLE_ROWS rows to every center: the measured rounding of the fp32
     expansion, which grows with the norms, not with the distance.  A row
     whose label differs is a near-tie when the float64 gap between its two
-    nearest centers is below GAP_ERRS·err; any other disagreement, or more
-    near-ties than NEAR_TIE_SHARE of the rows, fails."""
+    nearest centers is below GAP_ERRS·err, else one of ``others``; ``cap``
+    is NEAR_TIE_SHARE of the rows."""
     import math
     import torch
     probe = rows[:SAMPLE_ROWS].float()
@@ -231,15 +247,22 @@ def check_labels(rows, centers, got, want, what: str):
     err = float((sq_dists(probe, c32).double()
                  - sq_dists(probe.double(), c32.double())).abs().max())
     diff = got.long() != want.long()
-    near = 0
+    near = other = 0
     if bool(diff.any()):
         d = sq_dists(rows[diff].double(), c32.double())
         two = torch.topk(d, min(2, c32.shape[0]), dim=1, largest=False).values
         is_near = (two[:, -1] - two[:, 0]) < GAP_ERRS * err
         near, other = int(is_near.sum()), int((~is_near).sum())
-        check(other == 0, f"{what}: {other} labels differ beyond near-ties "
-                          f"(gap >= {GAP_ERRS} x {err:.3e})")
-    cap = math.ceil(NEAR_TIE_SHARE * rows.shape[0])
+    return near, other, math.ceil(NEAR_TIE_SHARE * rows.shape[0]), err
+
+
+def check_labels(rows, centers, got, want, what: str):
+    """Holds ``got`` to ``want`` up to near-ties (``label_faults``): any
+    other disagreement, or more near-ties than NEAR_TIE_SHARE of the rows,
+    fails.  Returns (near_ties, err)."""
+    near, other, cap, err = label_faults(rows, centers, got, want)
+    check(other == 0, f"{what}: {other} labels differ beyond near-ties "
+                      f"(gap >= {GAP_ERRS} x {err:.3e})")
     check(near <= cap, f"{what}: {near} near-ties, more than {cap}")
     return near, err
 
@@ -337,50 +360,53 @@ class plain_kernels:
         return False
 
 
-class forced_plan:
-    """Within the block, ``kmeans_assign_stacked`` lays out every call as
-    ``plan`` (the script patches ``launch_plan``; the package has no such
-    option)."""
-
-    def __init__(self, plan):
-        self.plan = plan
-
-    def __enter__(self):
-        from repro_torch.kernels.kmeans import kernel as kk
-        self.saved = kk.launch_plan
-        kk.launch_plan = lambda *args: self.plan
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.kernels.kmeans import kernel as kk
-        kk.launch_plan = self.saved
-        return False
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """Within the block, ``obj.name`` is ``value`` (the script patches the
+    kernel wrappers' layout and route choices; the package has no such
+    options)."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
 
 
 class forced_route:
     """Within the block, every GEMM takes the SIMT route (the script patches
     ``tma_operand``, so ``plan`` finds no TMA-readable operand), every
-    attention of more than 8 queries the SIMT tile kernel and every SSD
-    chunk the simt kernel (it patches both ``route`` functions): the routes
-    the main path took before the tensor-core kernels, timed beside them in
-    one run.  The package has no such option."""
+    attention of more than 8 queries the SIMT tile kernel, every SSD chunk
+    and every K-means assignment the simt kernel (it patches the ``route``
+    functions): the routes the main path took before the tensor-core
+    kernels, timed beside them in one run.  The package has no such
+    option."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.kmeans import kernel as kk
         from repro_torch.kernels.matmul import kernel as mk
         from repro_torch.kernels.ssd import kernel as sk
-        self.saved = (mk.tma_operand, fk.route, sk.route)
+        self.saved = (mk.tma_operand, fk.route, sk.route, kk.route)
         mk.tma_operand = lambda *args: None
         fk.route = lambda q, k, v: "rows" if q.shape[2] <= fk.ROW_QUERIES else "tile"
         sk.route = lambda *args: "simt"
+        kk.route = lambda *args: "simt"
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.kmeans import kernel as kk
         from repro_torch.kernels.matmul import kernel as mk
         from repro_torch.kernels.ssd import kernel as sk
-        mk.tma_operand, fk.route, sk.route = self.saved
+        mk.tma_operand, fk.route, sk.route, kk.route = self.saved
         return False
+
+
+def routed_as(route: str):
+    """The natural route, or ``forced_route`` for "simt" where the rule
+    gives a tensor-core route."""
+    return forced_route() if route == "simt" else contextlib.nullcontext()
 
 
 def routed(fn, kernel_fn, route: str, what: str):
@@ -528,7 +554,7 @@ def lm_kernels():
             "kmeans_assign": kk.kmeans_assign_stacked}
 
 
-ROUTED = ("flash_attention", "ssd_chunk")
+ROUTED = ("flash_attention", "ssd_chunk", "kmeans_assign")
 
 
 def zero_counts() -> None:
@@ -574,7 +600,8 @@ def phase_card(torch):
 
 
 #: kernels of the Hopper redesign, whose ptxas report must show no spills
-NEW_KERNELS = ("wgmma_kernel", "attn_wgmma_kernel", "simt_kernel", "ssd_mma_kernel")
+NEW_KERNELS = ("wgmma_kernel", "attn_wgmma_kernel", "simt_kernel", "ssd_mma_kernel",
+               "kmeans_mma_kernel")
 
 
 def ptxas_entries(log: str):
@@ -611,11 +638,11 @@ def phase_build():
         for entry, props, usage in entries:
             if any(k in entry for k in NEW_KERNELS):
                 print(f"[2]   {entry[:90]}: {usage}; {props}")
-                if "0 bytes spill stores, 0 bytes spill loads" not in props:
+                if "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" not in props:
                     spilled.append(entry)
         for note in ptxas_losses(log):
             print(f"[2]   ptxas: {note[:200]}")
-    check(not spilled, f"ptxas spills in the new kernels: {spilled}")
+    check(not spilled, f"ptxas spills (or a stack frame) in the new kernels: {spilled}")
 
 
 def phase_kernels(torch, gen):
@@ -688,6 +715,38 @@ def phase_kernels(torch, gen):
         raise RuntimeError("chip_smoke check failed: int32 GEMM did not raise")
 
     lib = kk._lib()
+
+    def form(x, c):
+        """What the call of these tensors launches: the route, and its
+        layout (the simt plan, or the mma route's form and sums)."""
+        d = c.shape[1]
+        if kk.route(x, c) == "simt":
+            return "simt", kk.launch_plan(lib, c.shape[0], d, 0)
+        if kk.resident(lib, c.shape[0], d, 0):
+            return "mma", "resident"
+        return "mma", "streamed + sums pass"
+
+    def assign_check(x, c, n, what):
+        """One call on the route ``form`` gives, against the plain version;
+        an mma call again, for the same bits.  Returns the labels."""
+        route, layout = form(x, c)
+        what = f"{what} {route} ({layout})"
+        l1, s1, c1 = routed(lambda: kk.kmeans_assign_stacked(x, c, n),
+                            kk.kmeans_assign_stacked, route, what)
+        l2, _, _ = kmeans_assign_stacked_ref(x, c, n)
+        check(bool((l1[n:] == -1).all()), f"{what}: rows >= n must get label -1")
+        near, _ = check_labels(stacked_rows(x, n), c, l1[:n], l2[:n], what)
+        serr = check_stats(x, l1, s1, c1, what)
+        again = ""
+        if route == "mma":
+            second = kk.kmeans_assign_stacked(x, c, n)
+            check(all(torch.equal(a, b) for a, b in zip((l1, s1, c1), second)),
+                  f"{what}: a second run gave other bits")
+            again = ", the same bits on a second run"
+        print(f"[3] kmeans_assign {what}: labels differ at {near} near-ties, sums max "
+              f"abs err {serr:.3e}{again}")
+        return l1, c1
+
     for gn, gm, bn, bm, n, k in [(3, 2, 100, 60, 250, 17), (1, 1, 600, 130, 600, 5),
                                  (4, 1, 128, 16, 500, 64), (2, 3, 97, 11, 150, 12),
                                  (4, 2, 512, 392, 2000, 10),      # 32-row tiles
@@ -696,35 +755,82 @@ def phase_kernels(torch, gen):
                                  (4, 1, 1024, 64, 4000, 1000),    # many clusters
                                  (4, 1, 1024, 2560, 4000, 64),    # D-tiled
                                  (3, 4, 700, 1024, 2000, 17),     # D-tiled, 4096
-                                 (3, 1, 1000, 40, 3000, 2000)]:   # global sums pass
+                                 (3, 1, 1000, 40, 3000, 2000),    # global sums pass
+                                 (2, 1, 3000, 100, 5000, 128),    # K_MMA centers
+                                 (4, 1, 512, 128, 2000, 64),      # pitch 136, resident
+                                 (4, 2, 512, 64, 2000, 64)]:      # the same rows, gm = 2
         x = rnd(gn, gm, bn, bm)
         valid = torch.arange(gn * bn, device="cuda").reshape(gn, 1, bn, 1) < n
         x = (x * valid).contiguous()
         c = rnd(k, gm * bm) * 0.5
-        l1, s1, c1 = kk.kmeans_assign_stacked(x, c, n)
-        l2, _, _ = kmeans_assign_stacked_ref(x, c, n)
-        torch.cuda.synchronize()
-        check(bool((l1[n:] == -1).all()), "rows >= n must get label -1")
-        near, _ = check_labels(stacked_rows(x, n), c, l1[:n], l2[:n],
-                               f"kmeans_assign k={k} d={gm * bm}")
-        serr = check_stats(x, l1, s1, c1, f"kmeans_assign k={k} d={gm * bm}")
-        plan = kk.launch_plan(lib, k, gm * bm, 0)
-        print(f"[3] kmeans_assign {(gn, gm, bn, bm)} n={n} k={k} {plan}: labels "
-              f"differ at {near} near-ties, sums max abs err {serr:.3e}")
-    # the D-tiled layout sums each distance in the whole-row layout's order
+        for route in dict.fromkeys((kk.route(x, c), "simt")):
+            with routed_as(route):
+                assign_check(x, c, n, f"{(gn, gm, bn, bm)} n={n} k={k}")
+    # uncentred features (blobs far from the origin, as unstandardised data
+    # is): the mma route meets the near-tie rule.  Control that must fail:
+    # the kernel's expansion with single-TF32 products, (||x||² - 2
+    # tf32(x)·tf32(c)) + ||c||² with the norms in fp32.  (The plain version
+    # fed TF32-rounded x and centers gives the exact distance between rounded
+    # points, which moves no argmin between such separated blobs: its control
+    # is the next case.)
+    gn, bm, n, k = 8, 100, 8 * 4096, 64
+    blob = 100 + torch.randn(k, bm, generator=gen, device="cuda")
+    pick = torch.randint(0, k, (n,), generator=gen, device="cuda")
+    x = (blob[pick] + rnd(n, bm)).reshape(gn, 1, n // gn, bm).contiguous()
+    c = (blob + 0.1 * rnd(k, bm)).contiguous()
+    assign_check(x, c, n, f"uncentred (blobs at 100) {tuple(x.shape)} k={k}")
+    rows, want = stacked_rows(x, n), kmeans_assign_stacked_ref(x, c, n)[0]
+    one_tf32 = ((rows * rows).sum(1, keepdim=True) - 2 * tf32(rows) @ tf32(c).T
+                + (c * c).sum(1)[None]).argmin(1)
+    ctrl = label_faults(rows, c, one_tf32, want)
+    check(ctrl[1] > 0 or ctrl[0] > ctrl[2],
+          f"control 'single-TF32 products' passed the near-tie rule: {ctrl}")
+    print(f"[3] kmeans_assign uncentred: the single-TF32 control differs at {ctrl[1]} "
+          f"labels beyond near-ties and {ctrl[0]} near-ties (cap {ctrl[2]})")
+    # centred random rows (no blobs: gaps near 0 are common, and fp32's own
+    # distance error is small): the mma route meets the near-tie rule, and
+    # the plain version fed TF32-rounded x and centers, which moves a gap by
+    # about 2^-11 of |x|·|c2 - c1|, must fail it
+    gn, bm, n, k = 32, 100, 32 * 4096, 64
+    x = rnd(gn, 1, n // gn, bm)
+    c = rnd(k, bm) * 0.5
+    assign_check(x, c, n, f"centred random rows {tuple(x.shape)} k={k}")
+    rows, want = stacked_rows(x, n), kmeans_assign_stacked_ref(x, c, n)[0]
+    ctrl = label_faults(rows, c, kmeans_assign_stacked_ref(tf32(x), tf32(c), n)[0], want)
+    check(ctrl[1] > 0 or ctrl[0] > ctrl[2],
+          f"control 'plain version of TF32-rounded x and centers' passed the near-tie "
+          f"rule: {ctrl}")
+    print(f"[3] kmeans_assign centred random rows: the plain version of TF32-rounded x "
+          f"and centers differs at {ctrl[1]} labels beyond near-ties and {ctrl[0]} "
+          f"near-ties (cap {ctrl[2]})")
+    # the D-tiled simt layout sums each distance in the whole-row layout's
+    # order; the mma route's streamed form in the resident form's order
     for gn, gm, bn, bm, n, k in [(4, 1, 1024, 100, 4000, 64), (3, 2, 512, 392, 1500, 10)]:
         x = rnd(gn, gm, bn, bm)
         c = rnd(k, gm * bm) * 0.5
         whole = kk.launch_plan(lib, k, gm * bm, 0)
-        l1, _, c1 = kk.kmeans_assign_stacked(x, c, n)
-        for ds in (256, 32):
-            tiled = kk.Plan(kk.DTILED_ROWS, min(whole.chunk, kk.DTILED_CHUNK), False, ds)
-            with forced_plan(tiled):
-                l2, _, c2 = kk.kmeans_assign_stacked(x, c, n)
-            same = bool((l1 == l2).all()) and bool((c1 == c2).all())
-            check(same, f"kmeans_assign {tiled} labels differ from {whole}")
+        with forced_route():
+            l1, _, c1 = kk.kmeans_assign_stacked(x, c, n)
+            for ds in (256, 32):
+                tiled = kk.Plan(kk.DTILED_ROWS, min(whole.chunk, kk.DTILED_CHUNK), False, ds)
+                with patched(kk, "launch_plan", lambda *args, p=tiled: p):
+                    l2, _, c2 = kk.kmeans_assign_stacked(x, c, n)
+                same = bool((l1 == l2).all()) and bool((c1 == c2).all())
+                check(same, f"kmeans_assign {tiled} labels differ from {whole}")
         print(f"[3] kmeans_assign d={gm * bm} k={k}: the D-tiled layout (slices of "
               f"256 and 32) gives {whole}'s labels and counts bit for bit")
+    for gn, gm, bn, bm, n, k in [(4, 1, 1024, 100, 4000, 64), (3, 1, 100, 120, 250, 17),
+                                 (4, 1, 512, 128, 2000, 64)]:
+        x = rnd(gn, gm, bn, bm)
+        c = rnd(k, gm * bm) * 0.5
+        check(form(x, c)[1].startswith("resident"), f"{(gn, gm, bn, bm)} is not resident")
+        l1, c1 = assign_check(x, c, n, f"{(gn, gm, bn, bm)} n={n} k={k}")
+        with patched(kk, "resident", lambda *args: False):
+            l2, c2 = assign_check(x, c, n, f"{(gn, gm, bn, bm)} n={n} k={k}")
+        check(torch.equal(l1, l2) and torch.equal(c1, c2),
+              f"kmeans_assign d={gm * bm} k={k}: streamed labels differ from resident")
+        print(f"[3] kmeans_assign d={gm * bm} k={k}: the mma route's streamed form gives "
+              f"the resident form's labels and counts bit for bit")
     sys.stdout.flush()
 
 
@@ -805,7 +911,7 @@ def phase_lm_kernels(torch, gen):
     for slow in (False, True):
         args = ssd_inputs(torch, gen, 160, 2, LM_SEQ, 64, 64, slow)[:5]
         for route in sk.ROUTES:
-            with forced_route() if route == "simt" else contextlib.nullcontext():
+            with routed_as(route):
                 ssd_chunk_check(args, 128, route, f"ssd_chunk BH=160 (B, C per 80 heads) "
                                 f"T={LM_SEQ} L=128 P=S=64 {'slow' if slow else 'fast'} "
                                 f"decay, {route}")
@@ -849,6 +955,7 @@ def main_path(torch, gen):
     mk.stacked_matmul.launches = 0
     mk.stacked_matmul.route_launches = dict.fromkeys(mk.ROUTES, 0)
     kk.kmeans_assign_stacked.launches = 0
+    kk.kmeans_assign_stacked.route_launches = dict.fromkeys(kk.ROUTES, 0)
     wall = {}
     t0 = time.perf_counter()
     x = rt.from_array(data, X_BLOCK, device="cuda")
@@ -878,7 +985,9 @@ def main_path(torch, gen):
     launches = {"stacked_matmul": mk.stacked_matmul.launches,
                 "kmeans_assign": kk.kmeans_assign_stacked.launches,
                 **{f"stacked_matmul/{r}": n
-                   for r, n in mk.stacked_matmul.route_launches.items()}}
+                   for r, n in mk.stacked_matmul.route_launches.items()},
+                **{f"kmeans_assign/{r}": n
+                   for r, n in kk.kmeans_assign_stacked.route_launches.items()}}
     loop = [e["dur"] for e in events if e["name"] == "fit.loop"]
     iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
     wall["lloyd_s"] = loop[0] / 1e6
@@ -887,12 +996,16 @@ def main_path(torch, gen):
     wall["n_iter"] = km.n_iter_
     print(f"[4] launches on the main path: {launches}; GEMM dispatches "
           f"{registry.snapshot('gemm')}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in ("stacked_matmul", "kmeans_assign"):
+        check(launches[name] > 0, f"{name} was not launched on the main path")
     # the two bf16 8192² products on the tensor cores; the Gram and the two
-    # f32 products on the SIMT route
+    # f32 products on the SIMT route; every assignment on the mma route
     check(launches["stacked_matmul/wgmma"] == 2 and launches["stacked_matmul/simt"] == 3,
           f"main-path GEMM routes {mk.stacked_matmul.route_launches}: want wgmma 2, simt 3")
+    check(launches["kmeans_assign/mma"] == launches["kmeans_assign"]
+          and launches["kmeans_assign/simt"] == 0,
+          f"main-path kmeans_assign routes {kk.kmeans_assign_stacked.route_launches}: "
+          f"want all {launches['kmeans_assign']} on mma")
 
     # checks
     x64 = data.double()
@@ -949,10 +1062,52 @@ def main_path(torch, gen):
     return x, A, B, Ab, Bb, km, launches, wall
 
 
-def phase_times(torch, x, A, B, Ab, Bb, km, launches):
-    """Phase 5: kernel, plain and library times at the main path's shapes."""
+def assign_times(torch, blocks, centers, n: int, label: str, phase: int):
+    """``kmeans_assign`` on the mma route (the main path's) and forced onto
+    the simt route, each checked against the plain version and timed; each
+    route's bound from the units it runs on (3xTF32: three TF32 products
+    per fp32 one).  Returns the row."""
     from repro_torch.kernels.kmeans import kernel as kk
     from repro_torch.kernels.kmeans.ref import kmeans_assign_stacked_ref
+    gn, gm, bn, bm = blocks.shape
+    k, d, n_pad = centers.shape[0], gm * bm, gn * bn
+    resident = kk.resident(kk._lib(), k, d, 0)
+    rows = stacked_rows(blocks, n)
+    want, _, _ = kmeans_assign_stacked_ref(blocks, centers, n)
+
+    def run(route, what):
+        got = routed(lambda: kk.kmeans_assign_stacked(blocks, centers, n),
+                     kk.kmeans_assign_stacked, route, what)
+        near, lerr = check_labels(rows, centers, got[0][:n], want[:n], what)
+        serr = check_stats(blocks, *got, what)
+        ms = timed(lambda: kk.kmeans_assign_stacked(blocks, centers, n))
+        print(f"[{phase}] {what}: {ms:.3f} ms; labels differ from the plain version at "
+              f"{near} near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others; sums max abs "
+              f"err {serr:.3e} vs float64", flush=True)
+        return ms, near, serr
+
+    form = "resident" if resident else "streamed + sums pass"
+    ms, near, serr = run("mma", f"{label}, mma ({form})")
+    row = {"case": label, "kernel": "mma", "form": form, "ms": ms}
+    with forced_route():
+        row["simt_ms"] = run("simt", f"{label}, simt (forced)")[0]
+    # the n valid rows: distances, argmin, ‖x‖², sums; n_pad labels written
+    flops = 2.0 * n * k * d + 3.0 * n * k + 2.0 * n * d + n * d
+    nbytes = 4.0 * (n * d + k * d + n_pad + k * d + k)
+    row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, "tf32")
+    row["simt_bound_ms"], row["simt_bound_by"] = bound(flops, nbytes, "fp32")
+    row.update(plain_ms=timed(lambda: kmeans_assign_stacked_ref(blocks, centers, n)),
+               library_ms=None, flops=flops, bytes=nbytes, max_abs_err=serr,
+               label_near_ties=near, tflops=flops / ms / 1e9)
+    print(f"[{phase}] {label}: mma {ms:.3f} ms (bound {row['bound_ms']:.3f} by "
+          f"{row['bound_by']}), simt {row['simt_ms']:.3f} ms (bound "
+          f"{row['simt_bound_ms']:.3f} by {row['simt_bound_by']}), plain "
+          f"{row['plain_ms']:.3f} ms", flush=True)
+    return row
+
+
+def phase_times(torch, x, A, B, Ab, Bb, km, launches):
+    """Phase 5: kernel, plain and library times at the main path's shapes."""
     from repro_torch.kernels.matmul import kernel as mk
     from repro_torch.kernels.matmul import ops as mops
     from repro_torch.kernels.matmul.ref import matmul_ref, stacked_matmul_ref
@@ -1035,32 +1190,11 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
 
     # kmeans_assign at the fit's shape, against the fitted centers
     blocks = x.blocks
-    gn, gm, bn, bm = blocks.shape
+    gm, bm = blocks.shape[1], blocks.shape[3]
     centers = torch.nn.functional.pad(km.centers_, (0, gm * bm - km.centers_.shape[1]))
-    centers = centers.contiguous()
-    n = x.shape[0]
-    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, centers, n)
-    l2, _, _ = kmeans_assign_stacked_ref(blocks, centers, n)
-    near, lerr = check_labels(stacked_rows(blocks, n), centers, l1[:n], l2[:n],
-                              "kmeans_assign at full size")
-    serr = check_stats(blocks, l1, s1, c1, "kmeans_assign at full size")
-    del l1, s1, c1, l2
-    k, d, n_pad = centers.shape[0], gm * bm, gn * bn
-    # the n valid rows: distances, argmin, ‖x‖², sums; n_pad labels written
-    flops = 2.0 * n * k * d + 3.0 * n * k + 2.0 * n * d + n * d
-    nbytes = 4.0 * (n * d + k * d + n_pad + k * d + k)
-    b_ms, b_by = bound(flops, nbytes, "fp32")
-    km_row = report({
-        "case": f"assign {n}x{d}, k={k}, blocks {X_BLOCK}, "
-                f"{kk.launch_plan(kk._lib(), k, d, 0)}",
-        "ms": timed(lambda: kk.kmeans_assign_stacked(blocks, centers, n)),
-        "plain_ms": timed(lambda: kmeans_assign_stacked_ref(blocks, centers, n)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "flops": flops, "bytes": nbytes, "max_abs_err": serr,
-        "label_near_ties": near})
-    print(f"[5] kmeans_assign full size: labels differ from the plain version at "
-          f"{near} near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others; sums max "
-          f"abs err {serr:.3e} vs float64", flush=True)
+    km_row = assign_times(torch, blocks, centers.contiguous(), x.shape[0],
+                          f"assign {x.shape[0]}x{gm * bm}, k={centers.shape[0]}, "
+                          f"blocks {X_BLOCK}", phase=5)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     gemm = {"route": "cuda", "source": "src/repro_torch/csrc/stacked_matmul.cu",
@@ -1072,19 +1206,17 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
         {"name": "stacked_matmul.simt", **gemm,
          "launches": launches["stacked_matmul/simt"], "shape": cases[0]["case"],
          **{key: cases[0][key] for key in keys}, "cases": cases},
-        {"name": "kmeans_assign", "route": "cuda",
-         "source": "src/repro_torch/csrc/kmeans_assign.cu",
-         "replaces": "src/repro/kernels/kmeans/kernel.py:57",
-         "launches": launches["kmeans_assign"], "shape": km_row["case"],
-         **{key: km_row[key] for key in keys}},
-    ]
+    ], km_row
 
 
 KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                                       "attn_wgmma_kernel")),
                  ("stacked_matmul", ("wgmma_kernel", "simt_kernel", "splitk_reduce")),
                  ("ssd_chunk", ("ssd_chunk_kernel", "ssd_mma_kernel")),
-                 ("kmeans_assign", ("kmeans_",)),
+                 ("kmeans_assign labels", ("kmeans_mma_kernel", "kmeans_assign_kernel",
+                                           "kmeans_assign_dtiled")),
+                 ("kmeans_assign sums pass", ("kmeans_sums_kernel",)),
+                 ("kmeans_assign split/reduce", ("kmeans_split_centers", "kmeans_reduce")),
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
 
 
@@ -1346,7 +1478,8 @@ def lm_path(torch, gen):
                    "flash_attention/wgmma": ATTN_PER_FORWARD * HIDDEN_BATCHES,
                    "ssd_chunk": SSD_PER_FORWARD * HIDDEN_BATCHES,
                    "ssd_chunk/mma": SSD_PER_FORWARD * HIDDEN_BATCHES,
-                   "kmeans_assign": km.n_iter_ + 1},
+                   "kmeans_assign": km.n_iter_ + 1,
+                   "kmeans_assign/mma": km.n_iter_ + 1, "kmeans_assign/simt": 0},
                   f"{HIDDEN_BATCHES} forward_hidden + KMeans fit/predict/score")
     iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
     wall["kmeans_n_iter"] = km.n_iter_
@@ -1392,7 +1525,6 @@ def lm_times(torch, gen, x, km, launches):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.kmeans import kernel as kk
-    from repro_torch.kernels.kmeans.ref import kmeans_assign_stacked_ref
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd.ref import ssd_chunk_ref
 
@@ -1488,31 +1620,17 @@ def lm_times(torch, gen, x, km, launches):
     check(routes == {"mma": SSD_PER_FORWARD * (2 + HIDDEN_BATCHES), "simt": 0},
           f"main paths launched ssd_chunk by route {routes}")
 
-    # kmeans_assign, D-tiled, on the hidden states and their fitted centers
-    blocks = x.blocks
-    gn, gm, bn, bm = blocks.shape
-    centers = km.centers_.contiguous()
-    n, k, d, n_pad = x.shape[0], centers.shape[0], gm * bm, gn * bn
-    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, centers, n)
-    l2, _, _ = kmeans_assign_stacked_ref(blocks, centers, n)
-    near, lerr = check_labels(stacked_rows(blocks, n), centers, l1[:n], l2[:n],
-                              "kmeans_assign D-tiled")
-    serr = check_stats(blocks, l1, s1, c1, "kmeans_assign D-tiled")
-    del l1, s1, c1, l2
-    flops = 2.0 * n * k * d + 3.0 * n * k + 2.0 * n * d + n * d
-    nbytes = 4.0 * (n * d + k * d + n_pad + k * d + k)
-    b_ms, b_by = bound(flops, nbytes, "fp32")
-    wide = report({
-        "case": f"assign {n}x{d}, k={k}, blocks {HIDDEN_BLOCK}, "
-                f"{kk.launch_plan(kk._lib(), k, d, 0)}",
-        "ms": timed(lambda: kk.kmeans_assign_stacked(blocks, centers, n)),
-        "plain_ms": timed(lambda: kmeans_assign_stacked_ref(blocks, centers, n)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-        "bytes": nbytes, "max_abs_err": serr, "label_near_ties": near})
-    print(f"[7] kmeans_assign D-tiled: labels differ from the plain version at {near} "
-          f"near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others", flush=True)
+    # kmeans_assign on the hidden states and their fitted centers: the mma
+    # route's streamed form, simt's D-tiled layout forced
+    blocks, centers, n = x.blocks, km.centers_.contiguous(), x.shape[0]
+    wide = assign_times(torch, blocks, centers, n,
+                        f"assign {n}x{centers.shape[1]}, k={centers.shape[0]}, blocks "
+                        f"{HIDDEN_BLOCK}", phase=7)
     device_profile(torch, lambda: kk.kmeans_assign_stacked(blocks, centers, n),
-                   "kmeans_assign D-tiled (labels, sums and reduce kernels)")
+                   "kmeans_assign, mma route, streamed (labels kernel, sums pass, reduce)")
+    assign_routes = {r: total(f"kmeans_assign/{r}") for r in kk.ROUTES}
+    check(assign_routes == {"mma": total("kmeans_assign"), "simt": 0},
+          f"the LM path launched kmeans_assign by route {assign_routes}")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in launches.items()}
@@ -1556,7 +1674,7 @@ def main(argv=None) -> int:
     phase_kernels(torch, gen)
     phase_lm_kernels(torch, gen)
     x, A, B, Ab, Bb, km, launches, wall = main_path(torch, gen)
-    kernels = phase_times(torch, x, A, B, Ab, Bb, km, launches)
+    kernels, whole = phase_times(torch, x, A, B, Ab, Bb, km, launches)
     print(f"[5] card: {smi}; main path wall: {json.dumps(wall)}")
     del x, A, B, Ab, Bb, km
     torch.cuda.empty_cache()
@@ -1564,14 +1682,23 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     wide, lm_kernel_lines = lm_times(torch, gen, hx, hkm, lm_launches)
-    assign = kernels[2]
-    assign["launches_by_path"] = {"dsarray_kmeans": assign["launches"],
-                                  "composition": lm_launches["composition"]["kmeans_assign"]}
-    assign["launches"] = sum(assign["launches_by_path"].values())
-    assign["cases"] = [{key: assign[key] for key in ("shape", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by",
-                                                     "library_ms", "max_abs_err")},
-                       wide]
+    by_path = {"dsarray_kmeans": launches["kmeans_assign"],
+               "composition": lm_launches["composition"]["kmeans_assign"]}
+    keys = ("ms", "bound_ms", "bound_by", "simt_ms", "simt_bound_ms", "simt_bound_by",
+            "plain_ms", "library_ms", "max_abs_err")
+    kernels.append({
+        "name": "kmeans_assign.mma", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans/kernel.py:57",
+        "launches": sum(by_path.values()),
+        "launches_by_route": {r: launches[f"kmeans_assign/{r}"]
+                              + lm_launches["composition"][f"kmeans_assign/{r}"]
+                              for r in ("mma", "simt")},
+        "launches_by_path": by_path, "shape": whole["case"],
+        **{key: whole[key] for key in keys},
+        "cases": [{"shape": row["case"], "form": row["form"],
+                   **{key: row[key] for key in keys}}
+                  for row in (whole, wide)]})
     for gemm in kernels[:2]:
         gemm["launches_by_path"] = {"dsarray_kmeans": gemm["launches"]}
     kernels += lm_kernel_lines

@@ -160,6 +160,19 @@ def _scalar_operand(other):
     return None
 
 
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``; a float to an integer type saturates as the
+    reference's cast does on the CPU: NaN becomes 0, values past the
+    type's range its bounds (``torch``'s own cast leaves them undefined)."""
+    if not t.dtype.is_floating_point or dtype.is_floating_point \
+            or dtype.is_complex or dtype == torch.bool:
+        return t.to(dtype)
+    info = torch.iinfo(dtype)
+    out = torch.where(torch.isnan(t), 0, t).to(dtype)
+    out = torch.where(t >= float(info.max) + 1, info.max, out)
+    return torch.where(t < info.min, info.min, out)
+
+
 class DsArray:
     """2-D blocked array with a NumPy-like API (paper §4.2.3).
 
@@ -306,6 +319,11 @@ class DsArray:
             rhs = _scalar_operand(other)
             if rhs is None:
                 return NotImplemented
+            if me.dtype == torch.bool and type(rhs) in (int, float):
+                # the reference's weak Python scalar lifts bool to the
+                # 32-bit type of its kind (torch would take int64, or
+                # refuse a bool operand of sub)
+                me = me.astype(torch.int32 if type(rhs) is int else torch.float32)
             probe_rhs = rhs
         out = op(rhs, me.blocks) if reverse else op(me.blocks, rhs)
         # both pad regions hold known constants at the SAME positions, so the
@@ -360,8 +378,8 @@ class DsArray:
         pad = self.pad_state
         if pad.kind == "fill":
             # the physical pad is cast too; re-derive the constant the same way
-            pad = pad_state_of(torch.tensor(pad.fill, dtype=self.dtype).to(dtype))
-        return DsArray(self.blocks.to(dtype), self.grid, pad)
+            pad = pad_state_of(_cast(torch.tensor(pad.fill, dtype=self.dtype), dtype))
+        return DsArray(_cast(self.blocks, dtype), self.grid, pad)
 
     # -- structural ops ---------------------------------------------------------
     def transpose(self) -> "DsArray":
@@ -431,10 +449,15 @@ class DsArray:
         else:
             x = self._remask(fill)
         if op == "sum":
-            # 32-bit integer accumulators, as the reference's sums
-            acc = torch.int32 if integral else None
-            red = lambda t, dims=None: (t.sum(dtype=acc) if dims is None
-                                        else t.sum(dim=dims, dtype=acc))
+            # 32-bit integer accumulators, as the reference's sums: uint32
+            # for unsigned types (torch has no uint32 sum: int64, wrapped)
+            unsigned = integral and self.dtype != torch.bool \
+                and not self.dtype.is_signed
+            acc = torch.int64 if unsigned else torch.int32 if integral else None
+
+            def red(t, dims=None):
+                out = t.sum(dtype=acc) if dims is None else t.sum(dim=dims, dtype=acc)
+                return out.to(torch.uint32) if unsigned else out
         else:
             f = torch.amax if op == "max" else torch.amin
             red = lambda t, dims=None: f(t) if dims is None else f(t, dim=dims)

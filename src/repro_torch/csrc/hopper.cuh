@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// tensor maps for TMA (encoded on the host through the driver's
-// cuTensorMapEncodeTiled, fetched from the runtime so nothing links
-// libcuda), mbarriers, TMA loads, wgmma shared-memory descriptors and the
-// wgmma instructions themselves (SS: both operands from shared memory; RS:
-// A from registers).
+// tensor maps for TMA (16-bit rank 4, f32 rank 2; encoded on the host
+// through the driver's cuTensorMapEncodeTiled, fetched from the runtime so
+// nothing links libcuda), mbarriers, TMA loads and 1-D bulk copies, wgmma
+// shared-memory descriptors and the wgmma instructions themselves (SS: both
+// operands from shared memory; RS: A from registers).
 //
 // Shared-memory layouts that the descriptors describe (T = 16-bit type):
 // - K-major tile, 128-byte swizzle: rows of 64 T (128 B) at a stride of
@@ -78,6 +78,24 @@ static cudaError_t encode_4d(CUtensorMap* map, const void* base, bool f16,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A rank-2 tiled map over an f32 matrix: `rows` rows of `cols` floats, `ld`
+// floats apart (a multiple of 4), a box of box0 floats x box1 rows, no
+// swizzle.  Out-of-bounds elements of a box read as zero.
+static cudaError_t encode_2d_f32(CUtensorMap* map, const void* base, long long cols,
+                                 long long rows, long long ld, int box0, int box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t gdim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t gstride[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1};
+  const cuuint32_t estride[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), gdim,
+                  gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -132,6 +150,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a rank-2 map into shared memory (128-byte aligned)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both ends 16-byte aligned)
+// into shared memory; completion counts them on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;   // 16 x 16
@@ -207,28 +209,10 @@ __host__ __device__ inline long long smem_floats(int L, int p, int s) {
   return (long long)L * ((p + 4) + (round16(s) + 4) + (s + 4)) + 3LL * L;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// v = hi + lo with hi = rna_tf32(v), lo = rna_tf32(v - hi).  Rounded by
-// adding half a TF32 unit to the bits: the mma reads the top 19 bits of an
-// operand, so that is cvt.rna.tf32.f32 (nearest, ties away from zero) for
-// every finite v, in two integer ops where cvt compiles to a sequence with
-// NaN checks; hi is masked before the subtraction
-__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-  hi = __float_as_uint(v) + 0x1000u;
-  const float rest = v - __uint_as_float(hi & 0xffffe000u);
-  lo = __float_as_uint(rest) + 0x1000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tf32x3::cp_async16;
+using tf32x3::mma_tf32;
+using tf32x3::split;
+using tf32x3::split_a;
 
 // d[n] += a·b[n] in 3xTF32 for the N tiles with n < live: the cross terms
 // hi·lo' + lo·hi' first, then hi·hi'.  Each pass runs over all tiles, so
@@ -248,15 +232,6 @@ __device__ __forceinline__ void mma3(float (*d)[4], const unsigned* ahi, const u
 #pragma unroll
   for (int n = 0; n < N; ++n)
     if (n < live) mma_tf32(d[n], ahi, bhi[n][0], bhi[n][1]);
-}
-
-// A fragment (16 x 8, row-major) of four fp32 values, split
-__device__ __forceinline__ void split_a(float v0, float v1, float v2, float v3, unsigned* hi,
-                                       unsigned* lo) {
-  split(v0, hi[0], lo[0]);
-  split(v1, hi[1], lo[1]);
-  split(v2, hi[2], lo[2]);
-  split(v3, hi[3], lo[3]);
 }
 
 // o[pn] += A · x[rows s, s + 1][8 pn + gq] for the n8 tiles of P: the B

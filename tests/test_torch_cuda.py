@@ -178,7 +178,7 @@ def _blobs(card, n, d, k, seed):
             torch.from_numpy(centers).to(card))
 
 
-@pytest.mark.parametrize("n,d,k,bs", [
+KMEANS_CASES = [
     (3000, 100, 64, (1024, 100)),     # the main path's layout
     (2000, 784, 10, (512, 392)),      # 32-row tiles, gm = 2
     (1500, 1000, 16, (700, 1000)),    # centers staged 8 at a time
@@ -188,11 +188,26 @@ def _blobs(card, n, d, k, seed):
     (1000, 4096, 17, (512, 1024)),    # D-tiled, gm = 4, a ragged chunk
     (700, 3000, 100, (300, 3000)),    # D-tiled, two chunks, a ragged slice
     (3000, 40, 2000, (1024, 40)),     # sums pass with its partial in global memory
-])
-def test_kmeans_assign_matches_plain(card, n, d, k, bs):
+    (900, 98, 33, (256, 98)),         # bm % 4 != 0: simt by the rule
+    (2000, 128, 64, (512, 128)),      # mma resident, rows at a pitch of 136
+    (2000, 128, 64, (512, 64)),       # gm = 2: simt by the rule
+]
+
+
+@pytest.mark.parametrize("n,d,k,bs", KMEANS_CASES)
+@pytest.mark.parametrize("forced", [None, "simt"])
+def test_kmeans_assign_matches_plain(card, monkeypatch, n, d, k, bs, forced):
+    """Each shape on the route the rule gives it, and forced onto simt by
+    patching ``route`` (the package has no such option)."""
     x, c = _blobs(card, n, d, k, seed=n + k)
     blocks = _stack(card, x, bs)
-    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, c, n)
+    r = kk.route(blocks, c)
+    assert r == ("mma" if k <= kk.K_MMA and bs[1] % 4 == 0 and bs[1] == d else "simt")
+    if forced:
+        monkeypatch.setattr(kk, "route", lambda *args: forced)
+        r = forced
+    l1, s1, c1 = _routed(kk.kmeans_assign_stacked.route_launches, r,
+                         lambda: kk.kmeans_assign_stacked(blocks, c, n))
     l2, s2, c2 = kmeans_assign_stacked_ref(blocks, c, n)
     torch.testing.assert_close(l1, l2, atol=0, rtol=0)
     torch.testing.assert_close(c1, c2, atol=0, rtol=0)
@@ -200,15 +215,53 @@ def test_kmeans_assign_matches_plain(card, n, d, k, bs):
 
 
 @pytest.mark.parametrize("n,d,k,bs", [(3000, 100, 64, (1024, 100)),
-                                      (2000, 784, 10, (512, 392))])
-def test_kmeans_labels_do_not_depend_on_the_layout(card, monkeypatch, n, d, k, bs):
-    """The D-tiled layout sums every distance in the same order as the
-    whole-row one: forced onto a shape the whole-row layout takes, it gives
-    the same labels bit for bit (and the same counts)."""
+                                      (3000, 2560, 64, (1024, 2560)),
+                                      (2000, 784, 10, (512, 784)),
+                                      (2000, 128, 64, (512, 128))])
+def test_kmeans_assign_mma_is_deterministic(card, n, d, k, bs):
+    """The mma route adds in a fixed order (no float atomics): a second
+    run gives the same bits."""
+    x, c = _blobs(card, n, d, k, seed=n * k)
+    blocks = _stack(card, x, bs)
+    first = _routed(kk.kmeans_assign_stacked.route_launches, "mma",
+                    lambda: kk.kmeans_assign_stacked(blocks, c, n))
+    second = kk.kmeans_assign_stacked(blocks, c, n)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,d,k,bs", [(3000, 100, 64, (1024, 100)),
+                                      (250, 120, 17, (100, 120)),
+                                      (2000, 128, 64, (512, 128))])
+def test_kmeans_mma_streamed_gives_the_resident_labels(card, monkeypatch, n, d, k, bs):
+    """The streamed form adds every distance in the resident form's order:
+    the same labels and counts bit for bit; the resident form's sums within
+    the card tolerance of the plain version."""
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
     c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(card)
     blocks = _stack(card, x, bs)
+    assert kk.route(blocks, c) == "mma" and kk.resident(kk._lib(), k, d, card.index or 0)
+    l1, s1, c1 = kk.kmeans_assign_stacked(blocks, c, n)
+    _, s_ref, _ = kmeans_assign_stacked_ref(blocks, c, n)
+    torch.testing.assert_close(s1, s_ref, atol=1e-4 * float(s_ref.abs().max()), rtol=1e-4)
+    monkeypatch.setattr(kk, "resident", lambda *args: False)
+    l2, s2, c2 = kk.kmeans_assign_stacked(blocks, c, n)
+    assert torch.equal(l1, l2) and torch.equal(c1, c2)
+    torch.testing.assert_close(s1, s2, atol=1e-4 * float(s1.abs().max()), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,k,bs", [(3000, 100, 64, (1024, 100)),
+                                      (2000, 784, 10, (512, 392))])
+def test_kmeans_labels_do_not_depend_on_the_layout(card, monkeypatch, n, d, k, bs):
+    """The simt route's D-tiled layout sums every distance in the same
+    order as its whole-row one: forced onto a shape the whole-row layout
+    takes, it gives the same labels bit for bit (and the same counts)."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(card)
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(card)
+    blocks = _stack(card, x, bs)
+    monkeypatch.setattr(kk, "route", lambda *args: "simt")
     assert kk.launch_plan(kk._lib(), k, d, card.index or 0).d_slice == 0
     l1, s1, c1 = kk.kmeans_assign_stacked(blocks, c, n)
     for ds in (256, 32):

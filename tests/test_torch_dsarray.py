@@ -144,6 +144,47 @@ def test_transpose_collect_norm_astype():
     assert_same(p.astype(torch.float16), j.astype(jnp.float16))
 
 
+BOOL_SCALAR = {
+    "add_int": lambda a: a + 1,
+    "mul_int": lambda a: a * 2,
+    "pow_int": lambda a: a ** 2,
+    "rsub_int": lambda a: 1 - a,
+    "rsub_float": lambda a: 1.5 - a,
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOOL_SCALAR))
+def test_bool_with_python_scalar_takes_32_bits(name):
+    """A bool ds-array with a Python int is int32 (float: float32), as the
+    reference's weak scalar gives; ``1 - b`` does not raise."""
+    p, j = both(X > 0, (3, 2))
+    got, want = BOOL_SCALAR[name](p), BOOL_SCALAR[name](j)
+    assert_same(got, want)
+    assert got.dtype in (torch.int32, torch.float32)
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_unsigned_sum_accumulates_uint32(axis):
+    """A uint8 sum is uint32 (``jnp.sum``'s accumulator for unsigned
+    types), wide enough for sums past 255."""
+    u = RNG.integers(0, 256, size=(10, 7)).astype(np.uint8)
+    p, j = both(u, (3, 4))
+    got, want = p.sum(axis=axis), j.sum(axis=axis)
+    assert got.dtype == torch.uint32
+    assert_same(got, want)
+
+
+def test_astype_int32_saturates_like_the_reference():
+    """+inf and 3e9 become 2147483647, NaN 0, -inf and -3e9 -2147483648,
+    as the reference's cast does on the CPU (also through ``x / 0``)."""
+    f = np.array([[np.inf, np.nan, 3e9, 2.5], [-np.inf, -3e9, -1.7, 7.0]],
+                 np.float32)
+    p, j = both(f, (1, 3))
+    assert_same(p.astype(torch.int32), j.astype(jnp.int32))
+    assert_same((p / 0.0).astype(torch.int32), (j / 0.0).astype(jnp.int32))
+    assert_same((p + 1.5).astype(torch.int8), (j + 1.5).astype(jnp.int8))
+
+
 @pytest.mark.parametrize("key", [
     3, 4, -1, slice(2, 9), slice(0, 6), slice(None, None, 2),
     slice(8, 1, -2), (slice(3, 7), slice(1, 4)), (slice(0, 6), slice(0, 4)),

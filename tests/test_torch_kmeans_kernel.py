@@ -139,6 +139,128 @@ def test_launch_plan_raises_past_one_tile():
     assert small.kmeans_assign_smem_bytes(64, 4096, *got) <= small.limit
 
 
+def _aligned(*shape):
+    return torch.zeros(shape)
+
+
+@pytest.mark.parametrize("blocks,k,want,centers_offset", [
+    (_aligned(31, 1, 1024, 100), 64, "mma", 0),     # the ds-array fit's layout
+    (_aligned(16, 1, 64, 2560), 64, "mma", 0),      # zamba2-2.7b hidden states
+    (_aligned(4, 1, 100, 120), 17, "mma", 0),       # k not a multiple of 8
+    (_aligned(4, 1, 512, 128), 64, "mma", 0),       # rows padded to a pitch of 136
+    (_aligned(2, 1, 300, 100), 128, "mma", 0),      # K_MMA centers
+    (_aligned(4, 2, 100, 60), 17, "simt", 0),       # gm = 2: TMA cannot read rows
+    (_aligned(4, 2, 512, 64), 64, "simt", 0),       # gm = 2, d = 128
+    (_aligned(31, 1, 1024, 100), 200, "simt", 0),   # too many centers
+    (_aligned(4, 1, 256, 98), 64, "simt", 0),       # bm % 4 != 0
+    (torch.zeros(2 * 256 * 100 + 1)[1:].view(2, 1, 256, 100), 64, "simt", 0),  # 4-byte offset
+    (_aligned(2, 1, 100, 256).transpose(2, 3), 64, "simt", 0),   # not contiguous
+    (_aligned(2, 1, 256, 100), 64, "simt", 1),      # centers 4 bytes off
+])
+def test_route(blocks, k, want, centers_offset):
+    """The route is a function of shapes, strides and alignment, so it is
+    decided here on CPU tensors exactly as on the card."""
+    d = blocks.shape[1] * blocks.shape[3]
+    centers = torch.zeros(k * d + centers_offset)[centers_offset:].view(k, d)
+    assert kernel.route(blocks, centers) == want
+
+
+class _MmaLib(_SmemLib):
+    """Stands in for the mma route's shared-memory query (the resident form
+    of csrc/kmeans_assign.cu: the split table, counts, labels, and one x
+    tile of 128 rows)."""
+
+    @staticmethod
+    def kmeans_assign_mma_smem_bytes(k, d, resident):
+        f = -(-d // 8) * 8
+        px = f if f % 16 == 8 else f + 8
+        return 4 * (32 + f // 8 * 64 * 16 + 64 + 128 + 128 * px)
+
+
+@pytest.mark.parametrize("k,d,want", [(64, 100, True), (17, 120, True),
+                                      (64, 16, True), (64, 128, True), (65, 100, False),
+                                      (64, 136, False), (64, 2560, False)])
+def test_resident_form(k, d, want):
+    """The mma route keeps the center table on chip and fuses the sums at
+    the fit's shape (k = 64, d = 100); wider rows or more centers stream."""
+    lib = _MmaLib(232448)
+    assert kernel.resident(lib, k, d, 0) == want
+
+
+def _tf32(t):
+    """``t`` rounded to TF32's 10-bit mantissa, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _sq_dists(x, c):
+    return (x * x).sum(1, keepdim=True) - 2 * x @ c.T + (c * c).sum(1)[None]
+
+
+def _near_tie_rule(x, c, got, want, gap_errs=4, share=1e-4):
+    """``chip_smoke.check_labels``: labels may differ only where the float64
+    gap between a row's two nearest centers is below gap_errs x the largest
+    |fp32 - float64| distance error on these rows, and at most a share of
+    1e-4 of the rows may be such near-ties.  Returns (ok, near, other)."""
+    err = float((_sq_dists(x, c).double() - _sq_dists(x.double(), c.double()))
+                .abs().max())
+    diff = got != want
+    d = _sq_dists(x[diff].double(), c.double())
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) < gap_errs * err
+    n_near, n_other = int(near.sum()), int((~near).sum())
+    return n_other == 0 and n_near <= np.ceil(share * x.shape[0]), n_near, n_other
+
+
+def test_3xtf32_assign_matches_plain_and_1xtf32_does_not():
+    """The mma route's precision design, emulated by bit rounding: 3xTF32
+    distances (hi·lo' + lo·hi', then hi·hi') give the plain labels up to the
+    near-tie rule, and the fused sums (fp32, each cluster's rows added in
+    row order) stay within 1e-4 of the float64 sums; single-TF32 distances
+    break the rule.  Blobs offset far from the origin, as unstandardised
+    features are."""
+    rng = np.random.default_rng(16)
+    n, d, k = 20_000, 100, 64
+    cen = (100.0 + rng.normal(size=(k, d))).astype(np.float32)
+    x = torch.from_numpy((cen[rng.integers(0, k, n)]
+                          + rng.normal(size=(n, d))).astype(np.float32))
+    c = torch.from_numpy((cen + 0.1 * rng.normal(size=(k, d))).astype(np.float32))
+    want, _, _ = kmeans_assign_ref(x, c)
+    xh, ch = _tf32(x), _tf32(c)
+    xl, cl = _tf32(x - xh), _tf32(c - ch)
+    xsq, csq = (x * x).sum(1, keepdim=True), (c * c).sum(1)[None]
+    dot3 = (xh @ cl.T + xl @ ch.T) + xh @ ch.T
+    l3 = torch.argmin((xsq - 2 * dot3) + csq, dim=1)
+    l1 = torch.argmin((xsq - 2 * (xh @ ch.T)) + csq, dim=1)
+    ok3, near3, other3 = _near_tie_rule(x, c, l3, want.long())
+    ok1, near1, other1 = _near_tie_rule(x, c, l1, want.long())
+    assert ok3, (near3, other3)
+    assert not ok1, (near1, other1)
+    sums = torch.zeros(k, d).index_add_(0, l3, x)
+    sums64 = torch.zeros(k, d, dtype=torch.float64).index_add_(0, l3, x.double())
+    assert float((sums - sums64).abs().max()) <= 1e-4 * float(sums64.abs().max())
+
+
+def test_tf32_rounded_inputs_fail_the_near_tie_rule_on_centred_rows():
+    """The control that the plain version fed TF32-rounded rows and centers
+    must fail: on centred random rows (no blobs, so gaps near 0 are common
+    and fp32's own distance error is small) rounding the inputs moves a gap
+    by about 2^-11 of |x|·|c2 - c1| and changes labels beyond the near-tie
+    rule, while the 3xTF32 distances keep to it."""
+    rng = np.random.default_rng(17)
+    n, d, k = 32768, 100, 64
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy((0.5 * rng.normal(size=(k, d))).astype(np.float32))
+    want = _sq_dists(x, c).argmin(1)
+    xh, ch = _tf32(x), _tf32(c)
+    dot3 = (xh @ _tf32(c - ch).T + _tf32(x - xh) @ ch.T) + xh @ ch.T
+    l3 = ((x * x).sum(1, keepdim=True) - 2 * dot3 + (c * c).sum(1)[None]).argmin(1)
+    ok3, near3, other3 = _near_tie_rule(x, c, l3, want)
+    ok_r, near_r, other_r = _near_tie_rule(x, c, _sq_dists(xh, ch).argmin(1), want)
+    assert ok3, (near3, other3)
+    assert not ok_r and other_r > 0, (near_r, other_r)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.kmeans_assign_stacked(torch.zeros((1, 1, 4, 2)),
