@@ -67,7 +67,26 @@ raises and the script exits non-zero):
    (forced, as before the tensor-core kernel), in the same run;
    ``kmeans_assign`` at the fit's shape on the mma route (resident) and
    forced onto simt, each against its own bound;
-6. the LM path: zamba2-2.7b at its published widths (54 Mamba-2 layers, the
+6. the lazy plan layer on the main path's arrays, each step's launch
+   counts zeroed before and read after: a fused chain at 8192² f32
+   (``sqrt(abs((A + B)·2))`` into sum(0), max(1) and a duplicate sum(0)),
+   its optimizer stats those of the reference's, the duplicate collapsed,
+   its bits the eager chain's, its kernel launches (``torch.profiler``, in
+   a child process: a profiler session here would cost phase 8's profiles
+   their kernels) beside the eager chain's; the transpose fold ``(X.lazy().T @ X)`` at
+   8 M x 100, bits equal to ``matmul_ta``, one ``stacked_matmul`` launch on
+   the route ``plan`` gives it, added peak memory below X's; the PCA
+   power-iteration body ``xl.T @ (xl @ Q)`` recorded 20 times (Q 100 x 8,
+   re-orthonormalised between), optimised and built once, 40 GEMM
+   launches, its last Q within the GEMM limit of the eager loop's; K-means
+   predict and two scores with ``‖x‖²`` as one plan, optimised once, the
+   score that of the eager ``‖x‖²``; ``pseudo_shuffle`` and
+   ``exact_shuffle`` of X, eager and lazy from one generator state (equal
+   bits), the sorted float64 row checksums ``x·w`` equal to X's, pad ZERO;
+   ``concat_rows`` of X split at 15 · 262,144 rows (grid stack) and at
+   4,000,000 (gather), both equal to X; ``norm(axis=1)`` and
+   ``norm(axis=0)`` within 1e-4 relative of float64; each step timed;
+7. the LM path: zamba2-2.7b at its published widths (54 Mamba-2 layers, the
    shared attention block after every 6), bf16, random weights from
    ``--seed`` with every norm scale, ``conv_b`` and ``dt_bias`` redrawn (the
    package's init, like the reference's, zeroes the norms, which makes every
@@ -88,7 +107,7 @@ raises and the script exits non-zero):
    2,560 fp32) as a ds-array with blocks (8192, 2560), clustered by
    ``KMeans(64, max_iter=20, tol=1e-4, seed=0)``, every ``kmeans_assign``
    on the mma route (streamed);
-7. times of ``flash_attention`` (prefill on the wgmma route and, forced,
+8. times of ``flash_attention`` (prefill on the wgmma route and, forced,
    on the SIMT tile kernel; decode), ``ssd_chunk`` (the mma route and,
    forced, the simt route) and ``kmeans_assign`` (the mma route and,
    forced, the simt route's D-tiled layout) at the LM path's shapes (the
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -577,7 +597,7 @@ def expect_counts(got, want, what: str) -> None:
     for name, n in want.items():
         check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
                               f"the path implies {n}")
-    print(f"[6] {what}: launches {got}", flush=True)
+    print(f"[7] {what}: launches {got}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -952,10 +972,7 @@ def main_path(torch, gen):
     sq2 = torch.rand(SQUARE, SQUARE, generator=gen, device="cuda") - 0.5
     torch.cuda.synchronize()
 
-    mk.stacked_matmul.launches = 0
-    mk.stacked_matmul.route_launches = dict.fromkeys(mk.ROUTES, 0)
-    kk.kmeans_assign_stacked.launches = 0
-    kk.kmeans_assign_stacked.route_launches = dict.fromkeys(kk.ROUTES, 0)
+    ds_counts(zero=True)
     wall = {}
     t0 = time.perf_counter()
     x = rt.from_array(data, X_BLOCK, device="cuda")
@@ -982,12 +999,7 @@ def main_path(torch, gen):
     t0 = time.perf_counter()
     score = km.score(x)
     wall["score_s"] = time.perf_counter() - t0
-    launches = {"stacked_matmul": mk.stacked_matmul.launches,
-                "kmeans_assign": kk.kmeans_assign_stacked.launches,
-                **{f"stacked_matmul/{r}": n
-                   for r, n in mk.stacked_matmul.route_launches.items()},
-                **{f"kmeans_assign/{r}": n
-                   for r, n in kk.kmeans_assign_stacked.route_launches.items()}}
+    launches = ds_counts()
     loop = [e["dur"] for e in events if e["name"] == "fit.loop"]
     iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
     wall["lloyd_s"] = loop[0] / 1e6
@@ -1209,6 +1221,291 @@ def phase_times(torch, x, A, B, Ab, Bb, km, launches):
     ], km_row
 
 
+PCA_COLS, PCA_ITERS = 8, 20   # the power iteration's Q and its recordings
+SPLIT_ALIGNED, SPLIT_RAGGED = 15 * X_BLOCK[0], 4_000_000   # concat_rows splits
+# the fused chain's optimizer stats, as the reference's optimizer reports
+# them for the same recording (tests/test_torch_lazy.py holds the two equal)
+CHAIN_STATS = {"nodes_before": 9, "nodes_after": 5, "fused_elementwise": 3}
+
+
+def ds_counts(zero: bool = False):
+    """The ds-array kernels' launch counts by kernel and route (set to 0
+    first with ``zero``)."""
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.matmul import kernel as mk
+    counts = {}
+    for name, fn in (("stacked_matmul", mk.stacked_matmul),
+                     ("kmeans_assign", kk.kmeans_assign_stacked)):
+        if zero:
+            fn.launches = 0
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        counts[name] = fn.launches
+        counts.update({f"{name}/{r}": n for r, n in fn.route_launches.items()})
+    return counts
+
+
+def kernel_launches(torch, fn):
+    """Kernels ``fn`` launches on the card, by ``torch.profiler``; None when
+    the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced(body):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)     # the trace is live first
+            torch.cuda.synchronize()
+            body()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0)
+
+    base, n = traced(lambda: None), traced(fn)
+    return n - base if base else None
+
+
+def fused_chain(torch, A, B):
+    """Phase 6's fused chain: the three lazy roots and the eager chain."""
+    s = ((A.lazy() + B) * 2.0).abs().sqrt()
+
+    def eager_chain():
+        e = ((A + B) * 2.0).abs().sqrt()
+        return e.sum(axis=0), e.max(axis=1), e.sum(axis=0)
+
+    return (s.sum(axis=0), s.max(axis=1), s.sum(axis=0)), eager_chain
+
+
+def chain_launches(seed: int) -> dict:
+    """The fused chain's kernel launches, lazy and eager, on new 8192² f32
+    arrays (launches depend on shapes and pad states, not values).  Runs in
+    a process of its own (``--chain-launches``): a ``torch.profiler``
+    session in the main process made phase 8's later profiles miss some or
+    all of their kernels."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import plan
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A, B = (rt.from_array(torch.rand(SQUARE, SQUARE, generator=gen, device="cuda"),
+                          SQUARE_BLOCK, device="cuda") for _ in range(2))
+    roots, eager_chain = fused_chain(torch, A, B)
+    fns = {"lazy": lambda: plan.compute_multi(*roots), "eager": eager_chain}
+    for fn in fns.values():          # warm: plan built, meta kernels imported
+        fn()
+    return {name: kernel_launches(torch, fn) for name, fn in fns.items()}
+
+
+def row_checksums(torch, a, w):
+    """Sorted float64 ``x·w`` of ``a``'s rows, one contiguous block-row at a
+    time (one reduction order for every row)."""
+    gn, gm, bn, bm = a.blocks.shape
+    wb = torch.nn.functional.pad(w, (0, gm * bm - w.shape[0])).reshape(gm, 1, bm)
+    sums = [(a.blocks[i].contiguous().double() * wb).sum((0, 2)) for i in range(gn)]
+    return torch.cat(sums)[: a.shape[0]].sort().values
+
+
+def phase_lazy(torch, gen, seed, x, A, B, km, smi):
+    """Phase 6: the lazy plan layer (record, optimize, fuse, cache) on the
+    main path's arrays; returns the launch counts of its six steps."""
+    import repro_torch as rt
+    from repro_torch.algorithms import kmeans as kmod
+    from repro_torch.core import plan
+    from repro_torch.kernels.matmul import kernel as mk
+    from repro_torch.obs import tracing
+
+    total = dict.fromkeys(ds_counts(), 0)
+    times = {}
+
+    def counted(what, fn):
+        """``fn()`` with the launch counts zeroed before and read after."""
+        ds_counts(zero=True)
+        out = fn()
+        torch.cuda.synchronize()
+        got = ds_counts()
+        for k, v in got.items():
+            total[k] += v
+        print(f"[6] {what}: launches {got}", flush=True)
+        return out, got
+
+    def bits_equal(got, want, what):
+        check(got.shape == want.shape and got.pad_state == want.pad_state
+              and torch.equal(got.blocks, want.blocks),
+              f"{what}: not the eager result's bits")
+
+    # 1. a fused elementwise chain into three reductions, one a duplicate
+    plan.clear_cache()
+    roots, eager_chain = fused_chain(torch, A, B)
+    with tracing.recording() as events:
+        p = plan.plan_for(*roots)
+    times["optimize_ms"] = next(e["dur"] for e in events
+                                if e["name"] == "plan.optimize") / 1e3
+    stats = {k: p.stats[k] for k in CHAIN_STATS}
+    check(stats == CHAIN_STATS, f"fused chain stats {stats}, want {CHAIN_STATS}")
+    check(p.roots[0] is p.roots[2], "the duplicate reduction did not collapse")
+    got, _ = counted("fused chain", lambda: plan.compute_multi(*roots))
+    want = eager_chain()
+    for g, w, what in zip(got, want, ("sum(axis=0)", "max(axis=1)", "sum(axis=0)")):
+        bits_equal(g, w, f"fused chain {what}")
+    del got, want
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--chain-launches",
+         "--seed", str(seed)], capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"the launch-count process failed: {child.stderr[-2000:]}")
+    launches = json.loads(child.stdout.strip().splitlines()[-1])
+    times["chain_ms"] = timed(lambda: plan.compute_multi(*roots))
+    times["chain_eager_ms"] = timed(eager_chain)
+    print(f"[6] fused chain {SQUARE}² f32 -> sum(0), max(1), sum(0): stats {stats} "
+          f"(optimizer {times['optimize_ms']:.3f} ms on the host); kernel launches "
+          f"(torch.profiler) lazy {launches['lazy']}, eager {launches['eager']}; "
+          f"{times['chain_ms']:.3f} ms (eager {times['chain_eager_ms']:.3f} ms); "
+          f"{smi}", flush=True)
+    times["chain_launches"] = launches
+    del roots, p
+
+    # 2. the transpose fold at full size: one GEMM reads X transposed
+    want = rt.matmul_ta(x, x)
+    gc.collect()               # no garbage freed inside the measured window
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, n = counted("fold", lambda: (x.lazy().T @ x).compute())
+    added = torch.cuda.max_memory_allocated() - base
+    bits_equal(got, want, "(X.lazy().T @ X).compute()")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = mk.plan(x.blocks.permute(1, 0, 3, 2), x.blocks, sms).route
+    check(n["stacked_matmul"] == 1 and n[f"stacked_matmul/{route}"] == 1,
+          f"fold launches {n}: want one stacked_matmul on {route}")
+    x_bytes = x.blocks.numel() * x.blocks.element_size()
+    check(added < x_bytes, f"the fold added {added} bytes, X holds {x_bytes}")
+    times["fold_ms"] = timed(lambda: (x.lazy().T @ x).compute())
+    times["fold_eager_ms"] = timed(lambda: rt.matmul_ta(x, x))
+    times["fold_added_bytes"] = added
+    print(f"[6] fold (X.lazy().T @ X) {N_ROWS}x{N_FEATURES}: bits equal matmul_ta, "
+          f"1 stacked_matmul on {route}, peak added {added / 1e6:.3f} MB (X "
+          f"{x_bytes / 1e9:.3f} GB); {times['fold_ms']:.3f} ms (eager "
+          f"{times['fold_eager_ms']:.3f} ms); {smi}", flush=True)
+    del got, want
+
+    # 3. the PCA power-iteration body recorded PCA_ITERS times
+    q0 = torch.linalg.qr(torch.randn((N_FEATURES, PCA_COLS), generator=gen,
+                                     device="cuda"))[0]
+
+    def power(step):
+        q = q0
+        for _ in range(PCA_ITERS):
+            y = step(rt.from_array(q, (N_FEATURES, PCA_COLS), device="cuda"))
+            q = torch.linalg.qr(y.collect())[0]
+        torch.cuda.synchronize()
+        return q
+
+    plan.clear_cache()
+    xl = x.lazy()
+    t0 = time.perf_counter()
+    q_lazy, n = counted(f"power iteration x{PCA_ITERS}",
+                        lambda: power(lambda qd: (xl.T @ (xl @ qd)).compute()))
+    times["pca_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / PCA_ITERS
+    st = plan.cache_stats()
+    want_st = {"opt_runs": 1, "opt_skips": PCA_ITERS - 1, "misses": 1,
+               "hits": PCA_ITERS - 1}
+    check({k: st[k] for k in want_st} == want_st, f"hot-loop plan counters {st}")
+    check(n["stacked_matmul"] == 2 * PCA_ITERS,
+          f"hot loop: {n['stacked_matmul']} stacked_matmul launches, want "
+          f"{2 * PCA_ITERS}")
+    t0 = time.perf_counter()
+    q_eager = power(lambda qd: rt.matmul_ta(x, x @ qd))
+    times["pca_eager_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / PCA_ITERS
+    err = gemm_close(q_lazy, q_eager, N_ROWS)
+    print(f"[6] power iteration (xl.T @ (xl @ Q)), Q {N_FEATURES}x{PCA_COLS}, "
+          f"{PCA_ITERS} recordings: plan counters {st}; last Q max abs err {err:.3e} "
+          f"vs the eager loop; {times['pca_ms_per_iter']:.3f} ms an iteration "
+          f"(eager {times['pca_eager_ms_per_iter']:.3f}); {smi}", flush=True)
+
+    # 4. K-means: score's ‖x‖² is a plan, optimised once across the calls
+    def eager_row_sq_norms(a):
+        s_ = (a * a).sum(axis=1)
+        return s_.blocks.reshape(a.blocks.shape[0], a.blocks.shape[2]).to(torch.float32)
+
+    plan.clear_cache()
+    (pred, score, score2), n = counted(
+        "KMeans predict, score, score",
+        lambda: (km.predict(x), km.score(x), km.score(x)))
+    st = plan.cache_stats()
+    check((st["opt_runs"], st["opt_skips"], st["misses"], st["hits"]) == (1, 1, 1, 1),
+          f"‖x‖² plan counters over predict and two scores: {st}")
+    check(n["kmeans_assign"] == 1, f"predict launched kmeans_assign {n}")
+    t0 = time.perf_counter()
+    km.score(x)
+    times["score_warm_s"] = time.perf_counter() - t0
+    with patched(kmod, "_row_sq_norms", eager_row_sq_norms):
+        t0 = time.perf_counter()
+        score_eager = km.score(x)
+        times["score_eager_s"] = time.perf_counter() - t0
+    rel = abs(score - score_eager) / abs(score_eager)
+    check(score == score2 and rel <= 1e-6,
+          f"score {score} / {score2} vs eager ‖x‖² {score_eager} (rel {rel:.2e})")
+    print(f"[6] KMeans score with the ‖x‖² plan {score:.9e}, eager ‖x‖² "
+          f"{score_eager:.9e} (rel {rel:.2e}); plan counters {st}; score "
+          f"{times['score_warm_s']:.4f} s (eager ‖x‖² {times['score_eager_s']:.4f} s; "
+          f"phase 4's first score pays the one-time import of torch's meta "
+          f"kernels)", flush=True)
+    del pred
+
+    # 5. shuffles: rows move unchanged, lazy equals eager for one state
+    w = torch.randn(N_FEATURES, generator=gen, device="cuda", dtype=torch.float64)
+    ref_sums = row_checksums(torch, x, w)
+    for name, fn in (("pseudo_shuffle", rt.pseudo_shuffle),
+                     ("exact_shuffle", rt.exact_shuffle)):
+        state = gen.get_state()
+        eager = fn(gen, x)
+        gen.set_state(state)
+        lazy_out = fn(gen, x.lazy()).compute()
+        bits_equal(lazy_out, eager, f"lazy {name}")
+        del lazy_out
+        check(eager.pad_state == rt.PAD_ZERO and eager.shape == x.shape,
+              f"{name}: pad {eager.pad_state}, shape {eager.shape}")
+        check(torch.equal(row_checksums(torch, eager, w), ref_sums),
+              f"{name}: the rows' checksums differ from X's")
+        moved = float((eager.blocks != x.blocks).any(-1).float().mean())
+        del eager
+        times[f"{name}_ms"] = timed(lambda: fn(gen, x))
+        times[f"{name}_lazy_ms"] = timed(lambda: fn(gen, x.lazy()).compute())
+        print(f"[6] {name} {N_ROWS}x{N_FEATURES}: rows' float64 checksums equal X's, "
+              f"pad ZERO, lazy == eager; {moved:.4f} of row slots changed; "
+              f"{times[f'{name}_ms']:.3f} ms (lazy {times[f'{name}_lazy_ms']:.3f} ms); "
+              f"{smi}", flush=True)
+    del ref_sums
+
+    # 6. structural: concat_rows of two splits of X, norms along each axis
+    for k, path in ((SPLIT_ALIGNED, "grid stack"), (SPLIT_RAGGED, "gather")):
+        parts = (x[:k], x[k:])
+        check((path == "grid stack") == (k % X_BLOCK[0] == 0), f"split {k}")
+        out = rt.concat_rows(parts)
+        bits_equal(out, x, f"concat_rows at {k}")
+        del out
+        times[f"concat_{k}_ms"] = timed(lambda: rt.concat_rows(parts))
+        print(f"[6] concat_rows split at {k} ({path}): equals X; "
+              f"{times[f'concat_{k}_ms']:.3f} ms; {smi}", flush=True)
+        del parts
+    rows = x.collect()
+    for axis in (1, 0):
+        got = x.norm(axis=axis).collect().reshape(-1).double()
+        if axis == 1:
+            ref = torch.cat([rows[lo:lo + SAMPLE_ROWS].double().pow(2).sum(1).sqrt()
+                             for lo in range(0, N_ROWS, SAMPLE_ROWS)])
+        else:
+            ref = sum(rows[lo:lo + SAMPLE_ROWS].double().pow(2).sum(0)
+                      for lo in range(0, N_ROWS, SAMPLE_ROWS)).sqrt()
+        rel = float(((got - ref).abs() / ref).max())
+        check(rel <= 1e-4, f"norm(axis={axis}) relative err {rel}")
+        del got, ref
+        times[f"norm_axis{axis}_ms"] = timed(lambda: x.norm(axis=axis))
+        print(f"[6] norm(axis={axis}): max relative err {rel:.3e} vs float64; "
+              f"{times[f'norm_axis{axis}_ms']:.3f} ms; {smi}", flush=True)
+    print(f"[6] card: {smi}; lazy-plan phase: {json.dumps(times)}; launches "
+          f"{total}", flush=True)
+    return total
+
+
 KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                                       "attn_wgmma_kernel")),
                  ("stacked_matmul", ("wgmma_kernel", "simt_kernel", "splitk_reduce")),
@@ -1243,7 +1540,7 @@ def device_profile(torch, fn, what: str):
                and e.self_device_time_total > 0]
     busy = sum(ms for _, _, ms in kernels)
     if not kernels:
-        print(f"[7] profile {what}: the profiler recorded no device time: not measured")
+        print(f"[8] profile {what}: the profiler recorded no device time: not measured")
         return {"what": what, "wall_ms": wall_ms, "busy_ms": None}
     groups = {}
     for name, count, ms in kernels:
@@ -1252,18 +1549,18 @@ def device_profile(torch, fn, what: str):
         n, t = groups.get(group, (0, 0.0))
         groups[group] = (n + count, t + ms)
     top = sorted(kernels, key=lambda k: -k[2])[:6]
-    print(f"[7] profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
+    print(f"[8] profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
           f"device busy {busy:.3f} ms ({busy / wall_ms:.3f} of it); by group: "
           + "; ".join(f"{g} {t:.3f} ms in {n} launches" for g, (n, t) in
                       sorted(groups.items(), key=lambda kv: -kv[1][1])), flush=True)
     for name, count, ms in top:
-        print(f"[7]   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
+        print(f"[8]   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
     return {"what": what, "wall_ms": wall_ms, "busy_ms": busy,
             "groups": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()}}
 
 
 def lm_path(torch, gen):
-    """Phase 6: the LM path at zamba2-2.7b's published widths, each step
+    """Phase 7: the LM path at zamba2-2.7b's published widths, each step
     with its launch counts zeroed before and checked after."""
     import dataclasses
     import repro_torch as rt
@@ -1290,7 +1587,7 @@ def lm_path(torch, gen):
         tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ), generator=gen,
                                device="cuda")
         torch.cuda.synchronize()
-        print(f"[6] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} Mamba-2 "
+        print(f"[7] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} Mamba-2 "
               f"layers, d_model {cfg.d_model}", flush=True)
 
         # forward through the kernels
@@ -1332,7 +1629,7 @@ def lm_path(torch, gen):
                             f"beyond 2 x the bf16 model's own {own}")
         for name, val in controls.items():
             check(val > limit, f"control '{name}' ({val}) passed the logits limit")
-        print(f"[6] forward logits vs plain: rms err {err:.4e} (limit 2 x {own:.4e}, the "
+        print(f"[7] forward logits vs plain: rms err {err:.4e} (limit 2 x {own:.4e}, the "
               f"plain bf16 forward vs the float32 model; the kernels' forward vs the "
               f"float32 model {rms(logits - exact):.4e}; logits rms {rms(plain):.4e}); "
               f"argmax agrees at {agree:.6f} of positions; controls {controls}",
@@ -1366,7 +1663,7 @@ def lm_path(torch, gen):
                        "flash_attention/rows": ATTN_PER_FORWARD * DECODE_SEQ},
                       f"float32 forward + {DECODE_SEQ} decode steps")
         check(derr < DECODE_TOL, f"decode vs teacher forcing: {derr}")
-        print(f"[6] float32 decode vs teacher forcing over {DECODE_SEQ} tokens: max "
+        print(f"[7] float32 decode vs teacher forcing over {DECODE_SEQ} tokens: max "
               f"abs err {derr:.3e} (limit {DECODE_TOL}; logits rms "
               f"{rms(full):.3e})", flush=True)
         del full, cache
@@ -1393,7 +1690,7 @@ def lm_path(torch, gen):
         check(float(clear.float().mean()) >= 0.5, "float32 serve.generate: too many "
                                                    "near-ties to check")
         check(zeros > 0, "control 'all tokens 0' passed the float32 generate check")
-        print(f"[6] float32 serve.generate {tuple(prompt.shape)} + {GEN32_NEW}: tokens "
+        print(f"[7] float32 serve.generate {tuple(prompt.shape)} + {GEN32_NEW}: tokens "
               f"equal the teacher-forced argmax at all {int(clear.sum())} of "
               f"{clear.numel()} positions without a near-tie (top-2 gap < "
               f"{2 * DECODE_TOL}); control 'all tokens 0' fails at {zeros}", flush=True)
@@ -1426,7 +1723,7 @@ def lm_path(torch, gen):
         check(agree >= BF16_AGREE, f"bf16 serve.generate agrees with the teacher-forced "
                                    f"argmax at {agree} of positions")
         check(zeros < BF16_AGREE, "control 'all tokens 0' passed the bf16 generate check")
-        print(f"[6] bf16 serve.generate {tuple(prompt.shape)} + {GEN_NEW}: tokens equal "
+        print(f"[7] bf16 serve.generate {tuple(prompt.shape)} + {GEN_NEW}: tokens equal "
               f"the bf16 teacher-forced argmax at {agree:.4f} of positions (limit "
               f"{BF16_AGREE}); each within {float(below.max()):.4f} of the float32 "
               f"model's best logit (limit {tau:.4f}); control 'all tokens 0' agrees "
@@ -1497,11 +1794,11 @@ def lm_path(torch, gen):
                        for lo in range(0, n, 16384))
     srel = abs(score - plain_score) / abs(plain_score)
     check(srel <= 1e-4, f"hidden-state score {score} vs float64 {plain_score}")
-    print(f"[6] KMeans on {n} x {cfg.d_model} hidden states, blocks {HIDDEN_BLOCK}: "
+    print(f"[7] KMeans on {n} x {cfg.d_model} hidden states, blocks {HIDDEN_BLOCK}: "
           f"n_iter {km.n_iter_}, score {score:.6e} (float64 {plain_score:.6e}, rel "
           f"{srel:.2e}); predict differs from the float64 argmin at {near} "
           f"near-ties (gap < {GAP_ERRS} x {lerr:.3e}), 0 others", flush=True)
-    print(f"[6] wall: {json.dumps(wall)}", flush=True)
+    print(f"[7] wall: {json.dumps(wall)}", flush=True)
 
     # where the device time goes (counts of these runs are not the path's)
     with torch.inference_mode():
@@ -1521,7 +1818,7 @@ def lm_path(torch, gen):
 
 
 def lm_times(torch, gen, x, km, launches):
-    """Phase 7: times of the LM path's kernels at its shapes."""
+    """Phase 8: times of the LM path's kernels at its shapes."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.kmeans import kernel as kk
@@ -1531,7 +1828,7 @@ def lm_times(torch, gen, x, km, launches):
     def report(row):
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         lib = row["library_ms"]
-        print(f"[7] {row['case']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
+        print(f"[8] {row['case']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {'-' if lib is None else f'{lib:.3f}'}, bound "
               f"{row['bound_ms']:.3f} by {row['bound_by']})", flush=True)
         return row
@@ -1566,7 +1863,7 @@ def lm_times(torch, gen, x, km, launches):
             ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
         ref = attention_ref(q, k, v, **kw)
         check(bad_count(out, ref, attn_limit(q, k, v, kw, ref)) == 0,
-              "attention beyond its limit in phase 7")
+              "attention beyond its limit in phase 8")
         err = float((out.double() - ref.double()).abs().max())
         del out, ref
         if causal:   # q·k over the causal half, then p·v: 4·B·H·T²·D/2
@@ -1591,10 +1888,10 @@ def lm_times(torch, gen, x, km, launches):
     bh, bg, t, L, p, s = LM_BATCH * 80, LM_BATCH, LM_SEQ, 128, 64, 64
     args = ssd_inputs(torch, gen, bh, bg, t, p, s, slow=False)[:5]
     label = f"ssd_chunk BH={bh} (B, C per 80 heads) T={t} L={L} P={p} S={s} f32"
-    err = ssd_chunk_check(args, L, "mma", f"{label}, mma", phase=7)
+    err = ssd_chunk_check(args, L, "mma", f"{label}, mma", phase=8)
     ms = timed(lambda: sk.ssd_chunk(*args, chunk=L))
     with forced_route():
-        ssd_chunk_check(args, L, "simt", f"{label}, simt (forced)", phase=7)
+        ssd_chunk_check(args, L, "simt", f"{label}, simt (forced)", phase=8)
         simt_ms = timed(lambda: sk.ssd_chunk(*args, chunk=L))
     nc = t // L
     # C·Bᵀ and W·X over the causal half (the L(L+1)/2 pairs s <= t), then
@@ -1613,7 +1910,7 @@ def lm_times(torch, gen, x, km, launches):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "simt_bound_ms": simt_b_ms, "simt_bound_by": simt_b_by, "flops": flops,
         "bytes": nbytes, "max_abs_err": err})
-    print(f"[7] ssd_chunk forced onto simt: {simt_ms:.3f} ms, bound "
+    print(f"[8] ssd_chunk forced onto simt: {simt_ms:.3f} ms, bound "
           f"{simt_b_ms:.3f} ms by {simt_b_by} (fp32)", flush=True)
     del args
     routes = {r: total(f"ssd_chunk/{r}") for r in sk.ROUTES}
@@ -1625,7 +1922,7 @@ def lm_times(torch, gen, x, km, launches):
     blocks, centers, n = x.blocks, km.centers_.contiguous(), x.shape[0]
     wide = assign_times(torch, blocks, centers, n,
                         f"assign {n}x{centers.shape[1]}, k={centers.shape[0]}, blocks "
-                        f"{HIDDEN_BLOCK}", phase=7)
+                        f"{HIDDEN_BLOCK}", phase=8)
     device_profile(torch, lambda: kk.kmeans_assign_stacked(blocks, centers, n),
                    "kmeans_assign, mma route, streamed (labels kernel, sums pass, reduce)")
     assign_routes = {r: total(f"kmeans_assign/{r}") for r in kk.ROUTES}
@@ -1657,6 +1954,8 @@ def lm_times(torch, gen, x, km, launches):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--chain-launches", action="store_true",
+                        help=argparse.SUPPRESS)   # phase 6's child process
     args = parser.parse_args(argv)
 
     import torch
@@ -1667,6 +1966,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.chain_launches:
+        emit(chain_launches(args.seed))
+        return 0
 
     name, smi = phase_card(torch)
     phase_build()
@@ -1676,6 +1978,7 @@ def main(argv=None) -> int:
     x, A, B, Ab, Bb, km, launches, wall = main_path(torch, gen)
     kernels, whole = phase_times(torch, x, A, B, Ab, Bb, km, launches)
     print(f"[5] card: {smi}; main path wall: {json.dumps(wall)}")
+    lazy = phase_lazy(torch, gen, args.seed, x, A, B, km, smi)
     del x, A, B, Ab, Bb, km
     torch.cuda.empty_cache()
     params, hx, hkm, lm_launches, lm_wall, profiles = lm_path(torch, gen)
@@ -1683,6 +1986,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     wide, lm_kernel_lines = lm_times(torch, gen, hx, hkm, lm_launches)
     by_path = {"dsarray_kmeans": launches["kmeans_assign"],
+               "lazy_plans": lazy["kmeans_assign"],
                "composition": lm_launches["composition"]["kmeans_assign"]}
     keys = ("ms", "bound_ms", "bound_by", "simt_ms", "simt_bound_ms", "simt_bound_by",
             "plain_ms", "library_ms", "max_abs_err")
@@ -1692,6 +1996,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/kmeans/kernel.py:57",
         "launches": sum(by_path.values()),
         "launches_by_route": {r: launches[f"kmeans_assign/{r}"]
+                              + lazy[f"kmeans_assign/{r}"]
                               + lm_launches["composition"][f"kmeans_assign/{r}"]
                               for r in ("mma", "simt")},
         "launches_by_path": by_path, "shape": whole["case"],
@@ -1699,10 +2004,12 @@ def main(argv=None) -> int:
         "cases": [{"shape": row["case"], "form": row["form"],
                    **{key: row[key] for key in keys}}
                   for row in (whole, wide)]})
-    for gemm in kernels[:2]:
-        gemm["launches_by_path"] = {"dsarray_kmeans": gemm["launches"]}
+    for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
+        gemm["launches_by_path"] = {"dsarray_kmeans": gemm["launches"],
+                                    "lazy_plans": lazy[f"stacked_matmul/{route}"]}
+        gemm["launches"] += lazy[f"stacked_matmul/{route}"]
     kernels += lm_kernel_lines
-    print(f"[7] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "
+    print(f"[8] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "
           f"{json.dumps(profiles)}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

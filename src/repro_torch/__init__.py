@@ -5,7 +5,9 @@ A second package beside ``repro`` (the JAX reference): the same stacked
 blocked GEMM and K-means, with the TPU kernels of that path rewritten as
 CUDA kernels for Hopper (``repro_torch/csrc``).  Creation routines take
 ``device=`` (default ``"cuda"``); everything downstream runs on the device
-of its inputs.
+of its inputs.  ``repro_torch.lazy()`` (or ``DsArray.lazy()``) records ops
+as a plan that ``compute()`` optimizes and runs (``core.expr``,
+``core.plan``).
 """
 
 from repro_torch import core

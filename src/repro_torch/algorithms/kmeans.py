@@ -22,8 +22,10 @@ from repro_torch.obs import tracing as _tracing
 
 
 def _row_sq_norms(x: DsArray) -> torch.Tensor:
-    """Per-row squared norms ``(gn, bn)``: ``(x*x).sum(axis=1)``, eagerly."""
-    s = (x * x).sum(axis=1)                          # (n, 1) ds-array
+    """Per-row squared norms ``(gn, bn)`` through one lazy plan: the square
+    fused into the row sum, no remask on the ZERO pad, and the plan cached
+    by structure, so every later call skips the optimizer."""
+    s = (x.lazy() * x).sum(axis=1).compute()        # (n, 1) ds-array
     gn, bn = x.blocks.shape[0], x.blocks.shape[2]
     return s.blocks.reshape(gn, bn).to(torch.float32)
 

@@ -22,7 +22,9 @@ Dtypes stay 32-bit, as in the JAX package (which never enables x64):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple, Union
+import functools
+import sys
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,6 +35,29 @@ Number = Union[int, float]
 
 # what 64-bit inputs become, so dtypes match the 32-bit reference
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _lazy_mode() -> bool:
+    """True when ``repro_torch.lazy()`` recording is armed (``core.expr``).
+
+    Checked at the top of every recordable op; resolved through
+    ``sys.modules`` so that arrays never pay an import before the lazy layer
+    is loaded (it cannot be armed before then).
+    """
+    expr = sys.modules.get("repro_torch.core.expr")
+    return expr is not None and expr.lazy_active()
+
+
+def _recordable(method):
+    """A DsArray op that, with recording armed, records the same op on the
+    array's lazy twin (``LazyDsArray`` has a method of the same name)."""
+    @functools.wraps(method)
+    def op(self, *args, **kwargs):
+        if _lazy_mode():
+            from repro_torch.core import expr
+            return getattr(expr.lift_lazy(self), method.__name__)(*args, **kwargs)
+        return method(self, *args, **kwargs)
+    return op
 
 
 def resolve_device(device) -> torch.device:
@@ -300,7 +325,17 @@ class DsArray:
                 f"(global ({r}, {c}), value {g[r, c]!r})")
         return self
 
+    # -- laziness -------------------------------------------------------------
+    def lazy(self) -> "LazyDsArray":
+        """This array lifted into the lazy layer: later ops record an
+        ``Expr`` plan that ``compute()`` optimizes (elementwise fusion, the
+        transpose folded into the GEMM, plan-wide pad states) before it
+        runs.  See ``core.expr`` and ``core.plan``."""
+        from repro_torch.core import expr
+        return expr.lift_lazy(self)
+
     # -- elementwise ----------------------------------------------------------
+    @_recordable
     def _binary(self, other, op: Callable, reverse: bool = False) -> "DsArray":
         me = self
         if isinstance(other, DsArray):
@@ -362,6 +397,7 @@ class DsArray:
     def __neg__(self):
         return self.map_blocks(torch.neg)
 
+    @_recordable
     def map_blocks(self, fn: Callable[[torch.Tensor], torch.Tensor],
                    pad: Optional[PadState] = None) -> "DsArray":
         """Apply an elementwise function to every block.  The pad state comes
@@ -374,6 +410,16 @@ class DsArray:
             pad = _probe_map_pad(fn, self.pad_state, self.dtype)
         return DsArray(out, self.grid, pad)
 
+    def sqrt(self) -> "DsArray":
+        return self.map_blocks(torch.sqrt)
+
+    def exp(self) -> "DsArray":
+        return self.map_blocks(torch.exp)
+
+    def abs(self) -> "DsArray":
+        return self.map_blocks(torch.abs)
+
+    @_recordable
     def astype(self, dtype: torch.dtype) -> "DsArray":
         pad = self.pad_state
         if pad.kind == "fill":
@@ -382,6 +428,7 @@ class DsArray:
         return DsArray(_cast(self.blocks, dtype), self.grid, pad)
 
     # -- structural ops ---------------------------------------------------------
+    @_recordable
     def transpose(self) -> "DsArray":
         """Paper §5.2: per-block transpose + block-grid permutation.  Returns
         a permuted VIEW of the stacked tensor (no copy); the GEMM kernel
@@ -403,6 +450,7 @@ class DsArray:
         out[:gn, :gm] = self.blocks
         return DsArray(out, self.grid, self.pad_state)
 
+    @_recordable
     def rechunk(self, block_shape: Tuple[int, int]) -> "DsArray":
         """Re-block to a new block size without a global ``(n, m)`` tensor
         (see ``core.structural.rechunk``)."""
@@ -414,6 +462,10 @@ class DsArray:
         stacked GEMM over (grid-k, block-k).  Zero pads on both operands make
         the padded contraction exact, so the result pad is zero."""
         from repro_torch.kernels.matmul.ops import local_matmul
+        if _lazy_mode():
+            from repro_torch.core import expr
+            if isinstance(other, (DsArray, expr.LazyDsArray)):
+                return expr.lift_lazy(self) @ other
         if not isinstance(other, DsArray):
             return NotImplemented
         if self.shape[1] != other.shape[0]:
@@ -434,6 +486,7 @@ class DsArray:
         return DsArray(out, grid, PAD_ZERO)
 
     # -- reductions ---------------------------------------------------------
+    @_recordable
     def _reduce(self, op: str, axis: Optional[int]):
         integral = not (self.dtype.is_floating_point or self.dtype.is_complex)
         if integral and self.dtype != torch.bool:
@@ -500,15 +553,19 @@ class DsArray:
             return s / float(denom)
         return s / denom
 
+    @_recordable
     def norm(self, axis: Optional[int] = None):
-        """Euclidean norm of all elements (``axis=None``)."""
-        if axis is not None:
-            raise NotImplementedError(
-                "norm(axis=...) needs apply_along_axis, not ported yet")
-        sq = self._binary(self, torch.mul)  # x*x keeps pad zero
-        return torch.sqrt(sq.sum())
+        """Euclidean norm along an axis (the paper's ``w.norm(axis=1)``),
+        through :func:`apply_along_axis`; ``axis=None`` is the norm of all
+        elements, a square and a sum."""
+        if axis is None:
+            sq = self._binary(self, torch.mul)  # x*x keeps pad zero
+            return torch.sqrt(sq.sum())
+        return apply_along_axis(lambda v: torch.sqrt(torch.sum(v * v)), axis,
+                                self)
 
     # -- indexing ------------------------------------------------------------
+    @_recordable
     def __getitem__(self, key) -> "DsArray":
         """NumPy-style indexing returning a new ds-array (paper §4.2.3):
         ``A[r]``, ``A[r0:r1]``, ``A[r0:r1, c0:c1]``, integer rows/cols and
@@ -544,6 +601,56 @@ def matmul_ta(a: DsArray, b: DsArray) -> DsArray:
     grid = BlockGrid((a.shape[1], b.shape[1]),
                      (a.block_shape[1], b.block_shape[1]))
     return DsArray(out, grid, PAD_ZERO)
+
+
+def apply_along_axis(fn: Callable[[torch.Tensor], torch.Tensor], axis: int,
+                     a: DsArray) -> DsArray:
+    """Paper §4.2.3 ``apply_along_axis``: ``fn`` over every 1-D slice
+    (``axis=1`` rows, ``axis=0`` columns); ``fn`` maps a vector to a scalar
+    or to a vector of fixed length.  The stacked tensor is regrouped so
+    that each slice is contiguous in a rank-3 block layout (grid dim first,
+    never the rank-2 ``(n, m)`` form) and ``fn`` runs as one
+    ``vmap(vmap(fn))`` over all of them; results of all-pad slices are
+    masked to zero."""
+    from repro_torch.core import structural
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    a2 = a.ensure_zero_pad()
+    gn, gm, bn, bm = a2.blocks.shape
+    n, m = a2.shape
+    each = torch.func.vmap(torch.func.vmap(fn))
+    if axis == 1:
+        out = each(a2.blocks.permute(0, 2, 1, 3).reshape(gn, bn, gm * bm)[..., :m])
+    else:
+        out = each(a2.blocks.permute(1, 3, 0, 2).reshape(gm, bm, gn * bn)[..., :n])
+    if out.ndim not in (2, 3):
+        raise ValueError("fn must return a scalar or 1-D vector")
+    if out.ndim == 2:
+        out = out[..., None]
+    k = out.shape[-1]
+    if axis == 1:
+        blocks = out[:, None]                           # (gn, 1, bn, k)
+        if gn * bn > n:
+            blocks = structural._mask_axes(blocks, n=n)
+        return DsArray(blocks, BlockGrid((n, k), (bn, k)), PAD_ZERO)
+    blocks = out.permute(0, 2, 1)[None]                 # (1, gm, k, bm)
+    if gm * bm > m:
+        blocks = structural._mask_axes(blocks, m=m)
+    return DsArray(blocks, BlockGrid((k, m), (k, bm)), PAD_ZERO)
+
+
+def concat_rows(arrays: Sequence) -> DsArray:
+    """Vertical concatenation (the paper's Dataset ``append``, generalised):
+    a stack of block grids when part row counts align to the block size,
+    a per-block gather otherwise (``core.structural.concat_rows``).  Records
+    a plan node when recording is armed or any part is lazy."""
+    arrays = list(arrays)
+    expr_m = sys.modules.get("repro_torch.core.expr")
+    if _lazy_mode() or (expr_m is not None and
+                        any(isinstance(a, expr_m.LazyDsArray) for a in arrays)):
+        return expr_m.record_concat(arrays)
+    from repro_torch.core import structural
+    return structural.concat_rows(arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -608,3 +715,10 @@ def random_array(generator: torch.Generator, shape: Tuple[int, int],
                      device=dev)
     res = DsArray(blocks, grid)
     return res._with_blocks(res._remask())
+
+
+def identity_like(a: DsArray) -> DsArray:
+    """The identity with ``a``'s shape, block shape, dtype and device."""
+    if a.shape[0] != a.shape[1]:
+        raise ValueError("identity_like needs a square array")
+    return eye(a.shape[0], a.block_shape, a.dtype, device=a.device)

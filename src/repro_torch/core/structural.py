@@ -1,14 +1,14 @@
-"""Block-native structural ops for ds-arrays (slice / filter / rechunk / gram).
+"""Block-native structural ops for ds-arrays (slice / filter / rechunk /
+concat / gram).
 
-The port of the parts of ``repro.core.structural`` that the main path uses.
-Every op consumes and produces the ``(gn, gm, bn, bm)`` stacked block tensor,
+The port of ``repro.core.structural`` (dense blocks).  Every op consumes and produces the ``(gn, gm, bn, bm)`` stacked block tensor,
 never the ``(n, m)`` global layout, and re-establishes the pad-is-zero
 invariant before returning.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,24 +59,37 @@ def _gather_block_rows(blocks: torch.Tensor, idx: torch.Tensor,
     return rows.reshape(out_gn, out_bn, gm, bm).permute(0, 2, 1, 3)
 
 
-def _index_vector(idx, size: int, device, what: str) -> torch.Tensor:
+def as_index(k):
+    """An integer index array from a list, array or tensor; a bool mask
+    gives the positions of its True entries."""
+    if isinstance(k, torch.Tensor):
+        return torch.nonzero(k).reshape(-1) if k.dtype == torch.bool else k
+    arr = np.asarray(k)
+    return np.flatnonzero(arr) if arr.dtype == bool else arr
+
+
+def index_vector(idx, size: int, device, what: str,
+                 checked: bool = False) -> torch.Tensor:
     """A 1-D int64 index tensor on ``device`` with negatives wrapped and the
-    range checked."""
+    range checked (a host sync for an index on the card).  ``checked=True``
+    skips the range check, for an index that was made by this function
+    already (a lazy plan checks its index once, when the op is recorded)."""
     t = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(np.asarray(idx))
     if t.ndim != 1:
         raise IndexError(f"{what} index must be 1-D, got shape {tuple(t.shape)}")
     t = t.to(device=device, dtype=torch.int64)
     t = torch.where(t < 0, t + size, t)
-    if t.numel() and (int(t.min()) < 0 or int(t.max()) >= size):
+    if not checked and t.numel() and (int(t.min()) < 0 or int(t.max()) >= size):
         raise IndexError(f"{what} index out of range for {size} {what}s")
     return t
 
 
-def take_rows(a, idx, out_bn: Optional[int] = None):
-    """Integer-array row selection (the paper's 'filtering'), block-native."""
+def take_rows(a, idx, out_bn: Optional[int] = None, checked: bool = False):
+    """Integer-array row selection (the paper's 'filtering'), block-native.
+    ``checked``: see :func:`index_vector`."""
     a = a.ensure_zero_pad()  # gathers re-use the source col pad
     n, m = a.shape
-    idx = _index_vector(idx, n, a.device, "row")
+    idx = index_vector(idx, n, a.device, "row", checked)
     p = int(idx.shape[0])
     bn = a.block_shape[0]
     out_bn = out_bn or min(bn, max(1, p))
@@ -87,11 +100,11 @@ def take_rows(a, idx, out_bn: Optional[int] = None):
     return type(a)(out, grid)
 
 
-def take_cols(a, idx, out_bm: Optional[int] = None):
+def take_cols(a, idx, out_bm: Optional[int] = None, checked: bool = False):
     """Column analogue of :func:`take_rows` (gather on the transposed grid)."""
     a = a.ensure_zero_pad()
     n, m = a.shape
-    idx = _index_vector(idx, m, a.device, "col")
+    idx = index_vector(idx, m, a.device, "col", checked)
     p = int(idx.shape[0])
     bm = a.block_shape[1]
     out_bm = out_bm or min(bm, max(1, p))
@@ -129,12 +142,13 @@ def aligned_slice(a, rows: slice, cols: slice):
     return type(a)(out, BlockGrid((nr, nc), (bn, bm)))
 
 
-def getitem(a, key):
+def getitem(a, key, checked: bool = False):
     """NumPy-style ``A[key]`` lowered to block-native ops (paper §4.2.3).
 
     Aligned unit-step slices take the grid-slice path; everything else
     (unaligned starts, strides, negative steps, int arrays, bool masks)
-    lowers to one gather per affected axis.
+    lowers to one gather per affected axis.  ``checked=True``: the index
+    arrays in ``key`` were range-checked already (:func:`index_vector`).
     """
     if not isinstance(key, tuple):
         key = (key, slice(None))
@@ -157,14 +171,7 @@ def getitem(a, key):
             if is_aligned_slice(k, size, block):
                 return ("aligned", k)
             return ("gather", torch.arange(*k.indices(size)))
-        if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
-            return ("gather", torch.nonzero(k).reshape(-1))
-        if not isinstance(k, torch.Tensor):
-            arr = np.asarray(k)
-            if arr.dtype == bool:
-                arr = np.flatnonzero(arr)
-            return ("gather", arr)
-        return ("gather", k)
+        return ("gather", as_index(k))
 
     rkind, rsel = classify(rows, a.shape[0], a.block_shape[0])
     ckind, csel = classify(cols, a.shape[1], a.block_shape[1])
@@ -180,9 +187,9 @@ def getitem(a, key):
                             rsel if rkind == "aligned" else slice(None),
                             csel if ckind == "aligned" else slice(None))
     if rkind == "gather":
-        out = take_rows(out, rsel)
+        out = take_rows(out, rsel, checked=checked)
     if ckind == "gather":
-        out = take_cols(out, csel)
+        out = take_cols(out, csel, checked=checked)
     return out
 
 
@@ -286,6 +293,56 @@ def rechunk(a, block_shape: Tuple[int, int]):
     a = a.ensure_zero_pad()
     grid = BlockGrid(a.shape, block_shape)   # validates block_shape > 0
     return type(a)(_rechunk_blocks(a.blocks, a.shape, block_shape), grid)
+
+
+# ---------------------------------------------------------------------------
+# Concatenation
+# ---------------------------------------------------------------------------
+
+
+def concat_rows(arrays: Sequence):
+    """Vertical concat, block-native.
+
+    When every part but the last (after rechunking to the first part's
+    block shape) has a row count divisible by ``bn``, the result is a stack
+    of the parts' block grids: no element is re-addressed.  Otherwise each
+    part's valid rows are gathered in block layout and re-tiled.
+    """
+    arrays = list(arrays)
+    if not arrays:
+        raise ValueError("concat_rows of empty sequence")
+    m = arrays[0].shape[1]
+    for a in arrays[1:]:
+        if a.shape[1] != m:
+            raise ValueError(
+                f"concat_rows column mismatch: {a.shape[1]} != {m}")
+    bs = arrays[0].block_shape
+    parts = [rechunk(a, bs).ensure_zero_pad() for a in arrays]
+    parts = [p for p in parts if p.shape[0] > 0] or parts[:1]
+    bn, bm = bs
+    total = sum(p.shape[0] for p in parts)
+    gm = max(1, ceil_div(m, bm))
+
+    def trimmed(p) -> torch.Tensor:
+        """The valid grid rows only, the stacked gm cut to the logical one."""
+        return p.blocks[: max(1, ceil_div(p.shape[0], bn)), :gm]
+
+    if all(p.shape[0] % bn == 0 for p in parts[:-1]):
+        # interior parts give whole blocks only and the last keeps its own
+        # (zero) pad: the pad-is-zero invariant holds for the stack
+        blocks = torch.cat([trimmed(p) for p in parts], dim=0)
+    else:
+        rows = []
+        for p in parts:
+            idx = torch.arange(p.shape[0], device=p.device)
+            rows.append(trimmed(p)[idx // bn, :, idx % bn, :])   # (n_i, gm, bm)
+        flat = torch.cat(rows, dim=0)
+        out_gn = max(1, ceil_div(total, bn))
+        pad = out_gn * bn - total
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad, gm, bm))], dim=0)
+        blocks = flat.reshape(out_gn, bn, gm, bm).permute(0, 2, 1, 3)
+    return type(arrays[0])(blocks, BlockGrid((total, m), bs))
 
 
 # ---------------------------------------------------------------------------

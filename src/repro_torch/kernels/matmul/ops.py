@@ -3,7 +3,9 @@
 
 A CUDA tensor of f32/bf16/f16 launches the CUDA kernel
 (``kernel.stacked_matmul``); a CPU tensor takes the plain version
-(``ref.stacked_matmul_ref``); a CUDA tensor of any other dtype raises.
+(``ref.stacked_matmul_ref``); a CUDA tensor of any other dtype raises.  A
+``meta`` tensor (the lazy layer infers shapes on them) gets an empty
+``meta`` result of the product's shape and dtype.
 ``gemm.dispatch_cuda`` / ``gemm.dispatch_plain`` count the decisions.
 """
 
@@ -40,6 +42,10 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     out_dtype = out_dtype or torch.promote_types(a.dtype, b.dtype)
+    if a.device.type == "meta":
+        # shapes only (the lazy layer's metadata inference): no data is
+        # read, nothing is launched and no dispatch is counted
+        return torch.empty((gi, gj, bn, bm), dtype=out_dtype, device="meta")
     if a.device.type == "cpu":
         _DISPATCHES.inc("dispatch_plain")
         return stacked_matmul_ref(a, b, out_dtype=out_dtype,

@@ -31,6 +31,10 @@ class Counter:
     def value(self) -> int:
         return self._value
 
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
 
 class MetricsRegistry:
     """All counters of the process, by dotted name.  ``counter`` is
@@ -73,3 +77,11 @@ class CounterGroup:
 
     def __getitem__(self, name: str) -> int:
         return self._counters[name].value
+
+    def as_dict(self) -> Dict[str, int]:
+        """``{name: value}`` in the order the names were given."""
+        return {n: c.value for n, c in self._counters.items()}
+
+    def reset(self) -> None:
+        for c in self._counters.values():
+            c.reset()

@@ -5,7 +5,9 @@ singleton, so an instrumented site pays a single flag check.  When enabled,
 each ``with span(name, **attrs):`` block records one Chrome trace-event
 "complete" record (``ph: "X"``, microsecond ``ts``/``dur``) into a locked
 buffer; :func:`recording` hands back the events of its block.  Span names used by the port:
-``fit.loop`` (a whole Lloyd loop) and ``fit.iteration`` (one pass of it).
+``fit.loop`` (a whole Lloyd loop), ``fit.iteration`` (one pass of it),
+``plan.optimize`` (one run of the lazy-plan optimizer) and ``plan.launch``
+(one plan execution, ended after a device sync).
 A span times the host: a site that wants device time synchronises inside
 the span (the K-means loop does, once per iteration, to test convergence).
 """
@@ -31,6 +33,10 @@ def enable() -> None:
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+def enabled() -> bool:
+    return _enabled
 
 
 def _jsonable(v):

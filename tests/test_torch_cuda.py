@@ -405,3 +405,55 @@ def test_ssd_chunk_bf16_raises(card):
     x, dt, a, b, c, _ = _ssd_inputs(card, 2, 2, 32, 8, 8, True, seed=0)
     with pytest.raises(TypeError):
         sk.ssd_chunk(x.bfloat16(), dt, a, b, c, chunk=16)
+
+
+def _lazy_inputs(card, n, m, bn, seed):
+    import repro_torch as pt
+    g = torch.Generator(device=card).manual_seed(seed)
+    return pt.from_array(torch.randn((n, m), generator=g, device=card), (bn, m),
+                         device=card)
+
+
+def test_lazy_fold_is_one_transposed_gemm(card, monkeypatch):
+    """``(X.lazy().T @ X).compute()`` launches ``stacked_matmul`` once, with
+    the transpose read through strides, and gives eager ``matmul_ta``'s
+    bits; ``X.T`` is never materialised."""
+    import repro_torch as pt
+    from repro_torch.core import dsarray
+    x = _lazy_inputs(card, 5000, 40, 1024, 1)
+    want = pt.matmul_ta(x, x)
+    recorded = x.lazy().T @ x      # metadata inference transposes meta tensors
+    transposes = []
+    real_t = dsarray.DsArray.transpose
+    monkeypatch.setattr(dsarray.DsArray, "transpose",
+                        lambda self: transposes.append(1) or real_t(self))
+    before = mk.stacked_matmul.launches
+    got = recorded.compute()
+    torch.cuda.synchronize()
+    assert mk.stacked_matmul.launches == before + 1
+    assert transposes == []
+    assert torch.equal(got.blocks, want.blocks)
+    assert got.pad_state == want.pad_state and got.shape == want.shape
+
+
+def test_lazy_hot_loop_optimizes_once_on_the_card(card):
+    """The PCA power-iteration body recorded 20 times: the optimizer runs
+    once, the run is built once, two GEMM launches an iteration, and each
+    iteration's bits equal the eager loop's."""
+    import repro_torch as pt
+    from repro_torch.core import plan
+    x = _lazy_inputs(card, 6000, 24, 1024, 2)
+    xl = x.lazy()
+    q = torch.linalg.qr(torch.randn((24, 4), device=card))[0]
+    plan.clear_cache()
+    before = mk.stacked_matmul.launches
+    for _ in range(20):
+        qd = pt.from_array(q, (24, 4), device=card)
+        got = (xl.T @ (xl @ qd)).compute()
+        want = pt.matmul_ta(x, x @ qd)
+        assert torch.equal(got.blocks, want.blocks)
+        q = torch.linalg.qr(got.collect())[0]
+    st = plan.cache_stats()
+    assert (st["opt_runs"], st["opt_skips"], st["misses"], st["hits"]) == \
+        (1, 19, 1, 19), st
+    assert mk.stacked_matmul.launches == before + 80     # lazy 40, eager 40

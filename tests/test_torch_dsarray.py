@@ -263,3 +263,103 @@ def test_convert_dsarray_from_numpy(pad):
                                    device="cpu")
     assert_same(p, j)
     assert_same(p.sum(axis=0), j.sum(axis=0))
+
+
+def test_full_casts_the_fill_into_the_dtype():
+    """``full`` with a fill the dtype cannot hold stores the cast value and
+    claims it: FILL(1) for 1.5 in int32, and ``check_invariants`` passes.
+    (The reference claims FILL(1.5) over data holding 1, which its own
+    ``check_invariants`` rejects: ``repro/core/dsarray.py:1097-1101``.)"""
+    p = pt.full((5, 7), (2, 3), 1.5, dtype=torch.int32, device="cpu")
+    assert p.dtype == torch.int32
+    assert (p.pad_state.kind, p.pad_state.fill) == ("fill", 1)
+    p.check_invariants()
+    assert bool((p.collect() == 1).all())
+    assert_same(p + 0, jx.full((5, 7), (2, 3), 1, dtype=jnp.int32) + 0)
+
+
+@pytest.mark.parametrize("op", ["sqrt", "exp", "abs"])
+@pytest.mark.parametrize("src", ["zero", "fill", "dirty"])
+def test_sqrt_exp_abs(op, src):
+    p, j = both(X, (3, 4))
+    p, j = {"zero": (p, j), "fill": (p + 1.5, j + 1.5),
+            "dirty": (p / 0.0, j / 0.0)}[src]
+    if op == "sqrt":
+        p, j = p.abs(), j.abs()
+    assert_same(getattr(p, op)(), getattr(j, op)())
+
+
+APPLY_FNS = {  # name: (port fn, reference fn)
+    "norm": (lambda v: torch.sqrt(torch.sum(v * v)),
+             lambda v: jnp.sqrt(jnp.sum(v * v))),
+    "max": (lambda v: v.max(), lambda v: v.max()),
+    "min_max": (lambda v: torch.stack([v.min(), v.max()]),
+                lambda v: jnp.stack([v.min(), v.max()])),
+    "scaled": (lambda v: v * 2.0 + 1.0, lambda v: v * 2.0 + 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(APPLY_FNS))
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("src", ["zero", "fill"])
+def test_apply_along_axis(name, axis, src):
+    """Scalar and vector ``fn`` on both axes, ragged edge blocks, a FILL
+    pad (zeroed first, as the reference does)."""
+    fn, jfn = APPLY_FNS[name]
+    p, j = both(X, (3, 4))
+    if src == "fill":
+        p, j = p + 1.5, j + 1.5
+    assert_same(pt.apply_along_axis(fn, axis, p),
+                jx.apply_along_axis(jfn, axis, j))
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("bs", [(3, 4), (10, 7), (4, 2)])
+def test_norm_axis(axis, bs):
+    p, j = both(X, bs)
+    assert_same(p.norm(axis=axis), j.norm(axis=axis))
+    np.testing.assert_allclose(
+        np.asarray(p.norm(axis=axis).collect() if axis is not None
+                   else p.norm()).reshape(-1),
+        np.linalg.norm(X.astype(np.float64), axis=axis).reshape(-1), **TOL)
+
+
+@pytest.mark.parametrize("n,bs,dtype", [(7, (3, 2), torch.float32),
+                                        (6, (6, 6), torch.int32),
+                                        (5, (2, 4), torch.float16)])
+def test_identity_like(n, bs, dtype):
+    p = pt.zeros((n, n), bs, dtype=dtype, device="cpu")
+    j = jx.zeros((n, n), bs, dtype=jnp.dtype(_dtype_name(dtype)))
+    assert_same(pt.identity_like(p), jx.identity_like(j))
+    with pytest.raises(ValueError, match="square"):
+        pt.identity_like(pt.zeros((3, 4), (2, 2), device="cpu"))
+
+
+CONCAT_CASES = {  # name: list of (rows, block shape) of the parts
+    "aligned": [(6, (3, 2)), (9, (3, 2)), (4, (3, 2))],
+    "ragged": [(5, (3, 2)), (7, (3, 2)), (2, (3, 2))],
+    "rechunked": [(6, (3, 2)), (4, (2, 5)), (3, (4, 3))],
+    "empty_part": [(6, (3, 2)), (0, (3, 2)), (5, (3, 2))],
+    "one": [(7, (4, 3))],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONCAT_CASES))
+@pytest.mark.parametrize("pad", ["zero", "fill"])
+def test_concat_rows(name, pad):
+    """Aligned parts take the grid stack, ragged ones the gather; parts of
+    other block shapes are rechunked to the first's; FILL pads are zeroed."""
+    ps, js = [], []
+    for rows, bs in CONCAT_CASES[name]:
+        arr = RNG.normal(size=(rows, 7)).astype(np.float32)
+        p, j = both(arr, bs)
+        if pad == "fill":
+            p, j = p + 1.5, j + 1.5
+        ps.append(p)
+        js.append(j)
+    got = pt.concat_rows(ps)
+    assert_same(got, jx.concat_rows(js))
+    np.testing.assert_array_equal(
+        got.collect().numpy(), np.concatenate([q.collect().numpy() for q in ps]))
+    with pytest.raises(ValueError, match="column mismatch"):
+        pt.concat_rows([ps[0], pt.zeros((2, 3), (2, 3), device="cpu")])

@@ -28,6 +28,10 @@ import repro_torch.models
 import repro_torch.launch.serve
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.ssd.ops
+import repro_torch.core.expr
+import repro_torch.core.plan
+import repro_torch.core.shuffle
+import torch
 from repro_torch.algorithms import KMeans
 x = pt.from_array(np.random.default_rng(0).normal(size=(40, 3)), (16, 2),
                   device="cpu")
@@ -35,6 +39,11 @@ km = KMeans(n_clusters=2, max_iter=5).fit(x)
 km.predict(x)
 km.score(x)
 (x @ x.T).sum()
+with pt.lazy():
+    y = ((x + 1.0) * 2.0).abs().sqrt()
+    s = pt.pseudo_shuffle(torch.Generator().manual_seed(0), y)
+    c = pt.concat_rows([s, x[3:10]])
+pt.compute_multi(y.T @ x, c.norm(axis=1), y.sum(axis=0), y.mean())
 repro_torch.launch.serve.main(["--smoke", "--device", "cpu", "--batch", "1",
                                "--prompt-len", "3", "--gen", "2"])
 loaded = sorted(m for m in sys.modules

@@ -97,3 +97,25 @@ def test_params_and_not_fitted():
     x = pt.from_array(np.zeros((4, 2), np.float32), (2, 2), device="cpu")
     with pytest.raises(NotFittedError):
         km.predict(x)
+
+
+@pytest.mark.parametrize("pad", ["zero", "fill"])
+def test_row_sq_norms_match_reference(fitted, pad):
+    """``‖x‖²`` per row through one lazy plan, as the reference forms it:
+    equal values and dtype on the same input (a FILL pad is zeroed by the
+    reduction), and the second call replays the cached plan."""
+    from repro.algorithms.kmeans import _row_sq_norms as jax_row_sq_norms
+    from repro_torch.algorithms.kmeans import _row_sq_norms
+    from repro_torch.core import plan
+    x, xp, xj, *_ = fitted
+    if pad == "fill":
+        xp, xj = xp + 0.5, xj + 0.5
+    plan.clear_cache()
+    got = _row_sq_norms(xp)
+    want = jax_row_sq_norms(xj)
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+    assert str(want.dtype) == "float32"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    assert torch.equal(_row_sq_norms(xp), got)
+    st = plan.cache_stats()
+    assert (st["opt_runs"], st["opt_skips"], st["misses"], st["hits"]) == (1, 1, 1, 1)
