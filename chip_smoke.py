@@ -119,7 +119,21 @@ raises and the script exits non-zero):
    the LM path's wall times, and a ``torch.profiler`` breakdown (device
    time by kernel group, the device's busy share) of one forward, 8 decode
    steps and one assign at the composition's shape (its labels kernel and
-   its sums pass apart).
+   its sums pass apart);
+9. the sparse path at the Netflix Prize shape (paper §5.3): 480,189 x
+   17,770 with 100,480,507 distinct uniform positions drawn from
+   ``--seed``, ratings 1..5, through ``from_scipy`` with blocks (32,768 x
+   4,096): ``check_invariants``, the three sums, ``(R·0.5).sqrt()``,
+   ``R·R``, ``R + R`` and ``canonicalize``, ``S·D`` for the one-block-row
+   slice S and a dense D, ``astype(bfloat16)``; ``R @ V``,
+   ``matmul_ta(R, U)``, ``R.T @ U`` and one ALS half-step (f = 16, its
+   dense product on ``stacked_matmul``); the lazy fold, a sparse chain
+   recorded twice and a lazy slice; ``KMeans(64)`` fit, predict and score
+   on R.  Each step against float64 (scipy, or the COO triplets on the
+   card) with a zeroed control that must fail; the products and K-means
+   run with the package's densify patched to raise; the added peak memory
+   of ``R @ V``, ``matmul_ta`` and one assignment below half of R's stored
+   bytes; their times beside the bytes bound and ``torch.sparse.mm``.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -1951,6 +1965,439 @@ def lm_times(torch, gen, x, km, launches):
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sparse blocks at the Netflix Prize shape
+# ---------------------------------------------------------------------------
+
+# the Netflix Prize ratings (paper §5.3): users x movies, ratings stored;
+# drawn from --seed at that shape and nnz (the file is not in the checkout)
+NETFLIX_USERS, NETFLIX_MOVIES, NETFLIX_RATINGS = 480_189, 17_770, 100_480_507
+NETFLIX_BLOCK = (32_768, 4_096)
+ALS_FACTORS, ALS_REG = 16, 0.1      # the reference ALS's defaults
+ENTRY_CHUNK = 4_000_000             # triplets per float64 reference pass
+
+
+def netflix_ratings(torch, gen):
+    """(csr, rows, cols, vals): NETFLIX_RATINGS distinct (user, movie)
+    positions drawn uniformly, ratings uniform in 1..5 (float32), as a scipy
+    CSR matrix and as int64/float64 COO triplets on the card."""
+    import numpy as np
+    import scipy.sparse as ssp
+    total = NETFLIX_USERS * NETFLIX_MOVIES
+    pos = torch.unique(torch.randint(0, total, (NETFLIX_RATINGS + 2_000_000,),
+                                     generator=gen, device="cuda"))
+    while pos.numel() < NETFLIX_RATINGS:
+        more = torch.randint(0, total, (NETFLIX_RATINGS - pos.numel() + 100_000,),
+                             generator=gen, device="cuda")
+        pos = torch.unique(torch.cat([pos, more]))
+    keep = torch.randperm(pos.numel(), generator=gen, device="cuda")[:NETFLIX_RATINGS]
+    pos = pos[keep].sort().values
+    del keep
+    rows, cols = pos // NETFLIX_MOVIES, pos % NETFLIX_MOVIES
+    del pos
+    vals = torch.randint(1, 6, (NETFLIX_RATINGS,), generator=gen,
+                         device="cuda").to(torch.float32)
+    indptr = torch.zeros(NETFLIX_USERS + 1, dtype=torch.int64, device="cuda")
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=NETFLIX_USERS), 0)
+    csr = ssp.csr_matrix((vals.cpu().numpy(), cols.to(torch.int32).cpu().numpy(),
+                          indptr.cpu().numpy()),
+                         shape=(NETFLIX_USERS, NETFLIX_MOVIES))
+    return csr, rows, cols, vals.double()
+
+
+def triplet_dots(torch, trip, c64):
+    """float64 ``x·cᵀ`` (n, k) of the COO triplets against ``c64`` (k, m):
+    each stored value times its column of the centers, summed per row by a
+    float64 ``index_add_``, ENTRY_CHUNK triplets at a time."""
+    rows, cols, vals = trip
+    out = torch.zeros((NETFLIX_USERS, c64.shape[0]), dtype=torch.float64,
+                      device="cuda")
+    ct = c64.T.contiguous()
+    for lo in range(0, rows.numel(), ENTRY_CHUNK):
+        sl = slice(lo, lo + ENTRY_CHUNK)
+        out.index_add_(0, rows[sl], ct[cols[sl]] * vals[sl, None])
+    return out
+
+
+def triplet_dist(torch, trip, c64):
+    """float64 ‖x‖² − 2x·c + ‖c‖² (n, k) from the triplets."""
+    rows, cols, vals = trip
+    x_sq = torch.zeros(NETFLIX_USERS, dtype=torch.float64, device="cuda")
+    x_sq.index_add_(0, rows, vals * vals)
+    return x_sq[:, None] - 2 * triplet_dots(torch, trip, c64) \
+        + (c64 * c64).sum(1)[None]
+
+
+def triplet_means(torch, trip, labels, k: int):
+    """float64 per-cluster means (k, m) and counts (k,) of the rows under
+    ``labels`` (n,), from the triplets."""
+    rows, cols, vals = trip
+    lab = labels.long()
+    sums = torch.zeros(k * NETFLIX_MOVIES, dtype=torch.float64, device="cuda")
+    for lo in range(0, rows.numel(), ENTRY_CHUNK):
+        sl = slice(lo, lo + ENTRY_CHUNK)
+        sums.index_add_(0, lab[rows[sl]] * NETFLIX_MOVIES + cols[sl], vals[sl])
+    counts = torch.bincount(lab, minlength=k).double()
+    return sums.reshape(k, NETFLIX_MOVIES) / counts.clamp(min=1)[:, None], counts
+
+
+def sparse_label_check(torch, dist32, dist64, got, what: str):
+    """``got`` (n,) against the float64 argmin of ``dist64`` (n, k): a row
+    may differ only at a near-tie, its float64 gap between the two nearest
+    centers below GAP_ERRS x the largest |fp32 − float64| distance of these
+    rows; and at most NEAR_TIE_SHARE of the rows.  Returns (near, err)."""
+    import math
+    err = float((dist32.double() - dist64).abs().max())
+    diff = got.long() != dist64.argmin(1)
+    near = 0
+    if bool(diff.any()):
+        two = torch.topk(dist64[diff], 2, dim=1, largest=False).values
+        is_near = (two[:, 1] - two[:, 0]) < GAP_ERRS * err
+        check(bool(is_near.all()), f"{what}: {int((~is_near).sum())} labels "
+                                   f"differ beyond near-ties (gap >= {GAP_ERRS} x {err:.3e})")
+        near = int(is_near.sum())
+    cap = math.ceil(NEAR_TIE_SHARE * got.numel())
+    check(near <= cap, f"{what}: {near} near-ties, more than {cap}")
+    return near, err
+
+
+@contextlib.contextmanager
+def never_densified():
+    """Within the block, any densify of a sparse array raises (the
+    package's ``todense`` and the two names its block densify is bound
+    to)."""
+    from repro_torch.core import sparse as smod
+    from repro_torch.kernels.matmul import ops as mops
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("chip_smoke check failed: a sparse array was densified")
+
+    with patched(smod, "todense", refuse), \
+            patched(smod, "_to_dense_blocks", refuse), \
+            patched(mops, "_to_dense_blocks", refuse):
+        yield
+
+
+def added_peak(torch, fn):
+    """(result, bytes): ``fn()`` and the device memory it added at its peak
+    over what was allocated before."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_sparse(torch, gen, smi):
+    """Phase 9: the sparse path at the Netflix Prize shape; returns its
+    kernel launches and the sparse-ops rows."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.algorithms import KMeans
+    from repro_torch.algorithms import kmeans as kmod
+    from repro_torch.core import plan
+    from repro_torch.core import sparse as smod
+    from repro_torch.obs import tracing
+
+    t_phase = time.perf_counter()
+    wall = {}
+    csr, *trip = netflix_ratings(torch, gen)
+    trip = tuple(trip)
+    csr64 = csr.astype(np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R = rt.from_scipy(csr, NETFLIX_BLOCK, device="cuda")
+    torch.cuda.synchronize()
+    wall["from_scipy_s"] = time.perf_counter() - t0
+    gn, gm, bn, bm = R.blocks.shape
+    nse = R.blocks.nse
+    stored = R.blocks.data.numel() * 4 + R.blocks.indices.numel() * 4
+    dense_bytes = 4.0 * gn * gm * bn * bm
+    mean_nnz = NETFLIX_RATINGS / (gn * gm)
+    row_nnz = np.diff(csr.indptr)
+    col_nnz = np.bincount(csr.indices, minlength=NETFLIX_MOVIES)
+    print(f"[9] R {NETFLIX_USERS}x{NETFLIX_MOVIES}, {NETFLIX_RATINGS} ratings "
+          f"({NETFLIX_RATINGS / (NETFLIX_USERS * NETFLIX_MOVIES):.4%} dense, uniform "
+          f"positions from --seed: real ratings are skewed, so real blocks pad more); "
+          f"from_scipy {wall['from_scipy_s']:.3f} s (triplets to the card, bucketed "
+          f"there); grid {gn}x{gm} of {NETFLIX_BLOCK}, nse {nse}, nse / mean block "
+          f"nnz {nse / mean_nnz:.4f}; stored {stored / 1e9:.3f} GB (dense "
+          f"{dense_bytes / 1e9:.1f} GB)", flush=True)
+    check(R.block_format == "bcoo" and nse == int(
+        smod.max_block_nnz(csr, NETFLIX_BLOCK)), f"R: format {R.block_format}, nse {nse}")
+
+    def close(out, ref, depth, what, control=True):
+        """GEMM-style limit for a reduction of ``depth`` terms; the zeroed
+        result must fail it."""
+        err = gemm_close(out, ref, depth)
+        if control:
+            check(gemm_bad(torch.zeros_like(out), ref, depth) > 0,
+                  f"{what}: the zeroed control passed")
+        print(f"[9] {what}: max abs err {err:.3e} vs float64 (depth {depth}); "
+              f"zeroed control fails", flush=True)
+        return err
+
+    def entries_close(out_data, ref64, what, ulps=2):
+        """Per stored entry: |out − ref| <= ulps·eps32·|ref|; zeroed fails."""
+        lim = ulps * torch.finfo(torch.float32).eps * ref64.abs()
+        bad = int(((out_data.double() - ref64).abs() > lim).sum())
+        check(bad == 0, f"{what}: {bad} entries beyond {ulps} ulps")
+        check(int(((0 * ref64 - ref64).abs() > lim).sum()) > 0,
+              f"{what}: the zeroed control passed")
+        print(f"[9] {what}: every stored entry within {ulps} ulps of float64; "
+              f"zeroed control fails", flush=True)
+
+    # 1. invariants, sums, data maps, pair ops, the gather, astype
+    t0 = time.perf_counter()
+    R.check_invariants()
+    wall["check_invariants_s"] = time.perf_counter() - t0
+    data64 = R.blocks.data.double()
+    total = R.sum()
+    close(total.reshape(1), torch.tensor([csr64.sum()], device="cuda"),
+          NETFLIX_RATINGS, "R.sum()")
+    close(R.sum(axis=0).collect().reshape(-1),
+          torch.from_numpy(np.asarray(csr64.sum(axis=0)).ravel()).cuda(),
+          int(col_nnz.max()), "R.sum(axis=0)")
+    close(R.sum(axis=1).collect().reshape(-1),
+          torch.from_numpy(np.asarray(csr64.sum(axis=1)).ravel()).cuda(),
+          int(row_nnz.max()), "R.sum(axis=1)")
+    out = (R * 0.5).sqrt()
+    check(out.block_format == "bcoo" and out.blocks.nse == nse,
+          f"(R*0.5).sqrt(): {out.block_format}, nse {out.blocks.nse}")
+    entries_close(out.blocks.data, (0.5 * data64).sqrt(), "(R * 0.5).sqrt()")
+    out = R * R
+    check(out.block_format == "bcoo" and out.blocks.nse == nse,
+          f"R * R: {out.block_format}, nse {out.blocks.nse}")
+    entries_close(out.blocks.data, data64 * data64, "R * R")
+    out = R + R
+    check(out.block_format == "bcoo" and out.blocks.nse == 2 * nse, "R + R")
+    out = smod.canonicalize(out)
+    check(out.blocks.nse == nse and torch.equal(out.blocks.indices, R.blocks.indices)
+          and torch.equal(out.blocks.data, 2 * R.blocks.data),
+          "canonicalize(R + R): not R's positions with twice its values")
+    print(f"[9] R + R: nse {2 * nse}; canonicalize: nse {nse}, R's indices, "
+          f"2·R's data bit for bit", flush=True)
+    S = R[:NETFLIX_BLOCK[0]]
+    check(S.block_format == "bcoo", "R[:32768] densified")
+    D = rt.random_array(gen, S.shape, NETFLIX_BLOCK, device="cuda")
+    out = S * D
+    check(out.block_format == "bcoo", "S * D densified")
+    sidx = S.blocks.indices.long()
+    grow = sidx[..., 0]
+    gcol = torch.arange(gm, device="cuda")[None, :, None] * bm + sidx[..., 1]
+    ok = (sidx[..., 0] < bn) & (sidx[..., 1] < bm)
+    dense_d = D.collect()
+    dv = torch.zeros_like(S.blocks.data, dtype=torch.float64)
+    dv[ok] = dense_d[grow[ok], gcol[ok]].double()
+    entries_close(out.blocks.data, S.blocks.data.double() * dv,
+                  f"S * D (S = R[:{NETFLIX_BLOCK[0]}], D {S.shape[0]}x{S.shape[1]} dense)",
+                  ulps=1)
+    del D, dense_d, dv, sidx, grow, gcol, ok, out
+    out = R.astype(torch.bfloat16)
+    check(out.block_format == "bcoo" and out.dtype == torch.bfloat16
+          and torch.equal(out.blocks.data.float(), R.blocks.data),
+          "R.astype(bfloat16): not R's ratings (exact in bf16)")
+    del out, data64
+    print("[9] R.astype(bfloat16): bcoo, every rating exact", flush=True)
+
+    # 2. the ALS products and one ALS half-step (f = 16), never densified
+    V = rt.from_array(torch.randn(NETFLIX_MOVIES, ALS_FACTORS, generator=gen,
+                                  device="cuda") * 0.1, (bm, ALS_FACTORS), device="cuda")
+    U = rt.from_array(torch.randn(NETFLIX_USERS, ALS_FACTORS, generator=gen,
+                                  device="cuda") * 0.1, (bn, ALS_FACTORS), device="cuda")
+    v64, u64 = V.collect().double().cpu().numpy(), U.collect().double().cpu().numpy()
+    ds_counts(zero=True)
+    with never_densified():
+        rv, rv_added = added_peak(torch, lambda: R @ V)
+        rv2 = R @ V
+        rtu, rtu_added = added_peak(torch, lambda: rt.matmul_ta(R, U))
+        rtu2 = rt.matmul_ta(R, U)
+        rtu_eager = R.T @ U
+        g = torch.linalg.inv(rt.gram(V).double() + ALS_REG * torch.eye(
+            ALS_FACTORS, dtype=torch.float64, device="cuda")).float()
+        u_new = (R @ V) @ rt.from_array(g, (ALS_FACTORS, ALS_FACTORS), device="cuda")
+    torch.cuda.synchronize()
+    als_launches = ds_counts()
+    check(als_launches["stacked_matmul/simt"] == 1 and als_launches["stacked_matmul"] == 1
+          and als_launches["kmeans_assign"] == 0,
+          f"ALS products: launches {als_launches}, want one stacked_matmul on simt")
+    check(torch.equal(rv.blocks, rv2.blocks) and torch.equal(rtu.blocks, rtu2.blocks),
+          "a repeated sparse product gave other bits")
+    close(rv.collect(), torch.from_numpy(csr64 @ v64).cuda(), int(row_nnz.max()),
+          f"R @ V (V {NETFLIX_MOVIES}x{ALS_FACTORS})")
+    ref_tu = torch.from_numpy(np.asarray(csr64.T @ u64)).cuda()
+    close(rtu.collect(), ref_tu, int(col_nnz.max()),
+          f"matmul_ta(R, U) (U {NETFLIX_USERS}x{ALS_FACTORS})")
+    rt_bits = torch.equal(rtu_eager.blocks, rtu.blocks)
+    if not rt_bits:
+        close(rtu_eager.collect(), ref_tu, int(col_nnz.max()), "R.T @ U")
+    print(f"[9] R.T @ U: {'bits equal matmul_ta' if rt_bits else 'within the limit, bits differ from matmul_ta'}",
+          flush=True)
+    g64 = np.linalg.inv(v64.T @ v64 + ALS_REG * np.eye(ALS_FACTORS))
+    close(u_new.collect(), torch.from_numpy((csr64 @ v64) @ g64).cuda(),
+          int(row_nnz.max()) * ALS_FACTORS, "ALS half-step (R @ V) @ inv(gram(V) + 0.1 I)")
+    slots = gn * gm * nse      # stored slots, the pad slots included
+    per_entry = {"R @ V": 4.0 * slots * ALS_FACTORS,
+                 "matmul_ta(R, U)": 4.0 * slots * ALS_FACTORS}
+    for what, added in (("R @ V", rv_added), ("matmul_ta(R, U)", rtu_added)):
+        check(added < stored / 2, f"{what} added {added} bytes, half of R's "
+                                  f"stored {stored} is the limit")
+        print(f"[9] {what}: added peak {added / 1e6:.3f} MB (limit {stored / 2e6:.1f} MB; "
+              f"a gather of one value per stored entry per output column "
+              f"{per_entry[what] / 1e9:.2f} GB)", flush=True)
+    del rv2, rtu2, rtu_eager, u_new, ref_tu
+
+    # 3. lazy: the fold, a sparse chain recorded twice, a lazy slice
+    with never_densified():
+        folded = (R.lazy().T @ U).compute()
+    check(torch.equal(folded.blocks, rtu.blocks), "(R.lazy().T @ U) is not matmul_ta's bits")
+    plan.clear_cache()
+    for _ in range(2):
+        chain = ((R.lazy() * 2.0) * R).sum(axis=1)
+        got = chain.compute()
+    st = plan.cache_stats()
+    check((st["opt_runs"], st["opt_skips"], st["misses"], st["hits"]) == (1, 1, 1, 1),
+          f"sparse chain plan counters {st}")
+    fused = plan.plan_for(chain).stats["fused_elementwise"]
+    check(fused == 0, f"the sparse nodes fused ({fused})")
+    close(got.collect().reshape(-1),
+          torch.from_numpy(2 * np.asarray(csr64.multiply(csr64).sum(axis=1)).ravel()).cuda(),
+          int(row_nnz.max()), "((R.lazy() * 2) * R).sum(axis=1)")
+    a = R.lazy()[:NETFLIX_BLOCK[0]].todense().compute()
+    b = R[:NETFLIX_BLOCK[0]].todense()
+    check(a.block_format == "dense" and torch.equal(a.blocks, b.blocks),
+          "R.lazy()[:32768].todense() differs from R[:32768].todense()")
+    del a, b, folded, got
+    print(f"[9] lazy: (R.lazy().T @ U) bits equal matmul_ta; the sparse chain "
+          f"recorded twice: counters {st}, fused_elementwise {fused}; the lazy "
+          f"slice's todense equals the eager one", flush=True)
+
+    # 4. K-means on the users' rating rows, never densified
+    k = N_CLUSTERS
+    km = KMeans(n_clusters=k, max_iter=20, tol=1e-4, seed=0)
+    last = {}
+    stats_fn = kmod._sparse_center_stats
+
+    def recorded_stats(x, row_valid, centers, x_sq):
+        out = stats_fn(x, row_valid, centers, x_sq)
+        last["centers"], last["labels"] = centers, out[0]
+        return out
+
+    ds_counts(zero=True)
+    with never_densified(), patched(kmod, "_sparse_center_stats", recorded_stats):
+        with tracing.recording() as events:
+            t0 = time.perf_counter()
+            km.fit(R)
+            torch.cuda.synchronize()
+            wall["fit_s"] = time.perf_counter() - t0
+        fit_last = dict(last)
+        t0 = time.perf_counter()
+        pred = km.predict(R)
+        torch.cuda.synchronize()
+        wall["predict_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        score = km.score(R)
+        wall["score_s"] = time.perf_counter() - t0
+    km_launches = ds_counts()
+    check(sum(km_launches.values()) == 0, f"sparse K-means launched {km_launches}")
+    loop = [e["dur"] for e in events if e["name"] == "fit.loop"]
+    iters = [e["dur"] for e in events if e["name"] == "fit.iteration"]
+    wall["init_s"] = wall["fit_s"] - loop[0] / 1e6
+    wall["s_per_iteration"] = statistics.median(iters) / 1e6
+    wall["n_iter"] = km.n_iter_
+    n = NETFLIX_USERS
+    c64 = km.centers_.double()
+    dist64 = triplet_dist(torch, trip, c64)
+    x_sq = kmod._row_sq_norms(R)
+    cpad = torch.nn.functional.pad(km.centers_, (0, gm * bm - NETFLIX_MOVIES))
+    dist32 = (x_sq[..., None] - 2.0 * kmod._dots(R, cpad)
+              + (cpad * cpad).sum(1)).reshape(-1, k)[:n]
+    near, lerr = sparse_label_check(torch, dist32, dist64,
+                                    pred.collect().reshape(-1), "predict")
+    plain_score = -float(dist64.min(1).values.clamp(min=0).sum())
+    srel = abs(score - plain_score) / abs(plain_score)
+    check(srel <= 1e-4, f"score {score} vs float64 {plain_score}")
+    # the last Lloyd step: its labels against its centers, and the returned
+    # centers the float64 means of those labels' members
+    prev64 = fit_last["centers"][:, :NETFLIX_MOVIES].double()
+    lab = fit_last["labels"].reshape(-1)[:n]
+    pdist64 = triplet_dist(torch, trip, prev64)
+    pcs = fit_last["centers"]
+    pdist32 = (x_sq[..., None] - 2.0 * kmod._dots(R, pcs)
+               + (pcs * pcs).sum(1)).reshape(-1, k)[:n]
+    lnear, _ = sparse_label_check(torch, pdist32, pdist64, lab, "the last Lloyd step")
+    means, counts = triplet_means(torch, trip, lab, k)
+    means = torch.where(counts[:, None] > 0, means, prev64)
+    close(km.centers_, means, int(counts.max()), "centers vs float64 member means")
+    print(f"[9] KMeans({k}) on R: n_iter {km.n_iter_}, score {score:.6e} (float64 "
+          f"{plain_score:.6e}, rel {srel:.2e}); predict differs from the float64 "
+          f"argmin at {near} near-ties (gap < {GAP_ERRS} x {lerr:.3e}); the last "
+          f"step's labels at {lnear}; no kernel launched, R never densified; "
+          f"wall {json.dumps(wall)}", flush=True)
+    del dist64, dist32, pdist64, pdist32, means, pred
+
+    # 5. one assignment's added memory, and 6. times beside the bound and cuSPARSE
+    row_valid = km._row_valid(R)
+    with never_densified():
+        _, assign_added = added_peak(
+            torch, lambda: kmod._sparse_center_stats(R, row_valid, cpad, x_sq))
+    check(assign_added < stored / 2, f"one K-means assignment added {assign_added} "
+                                     f"bytes, half of R's stored {stored} is the limit")
+    print(f"[9] one K-means assignment (k={k}): added peak {assign_added / 1e6:.3f} MB "
+          f"(limit {stored / 2e6:.1f} MB; a gather of one value per stored slot "
+          f"per center {4.0 * slots * k / 1e9:.1f} GB)", flush=True)
+    crow = torch.from_numpy(csr.indptr.astype(np.int64)).cuda()
+    lib_r = torch.sparse_csr_tensor(crow, torch.from_numpy(csr.indices.astype(np.int64)).cuda(),
+                                    torch.from_numpy(csr.data).cuda(),
+                                    size=(NETFLIX_USERS, NETFLIX_MOVIES))
+    cst = csr.T.tocsr()
+    lib_rt = torch.sparse_csr_tensor(torch.from_numpy(cst.indptr.astype(np.int64)).cuda(),
+                                     torch.from_numpy(cst.indices.astype(np.int64)).cuda(),
+                                     torch.from_numpy(cst.data).cuda(),
+                                     size=(NETFLIX_MOVIES, NETFLIX_USERS))
+    del cst
+    vd, ud = V.collect().contiguous(), U.collect().contiguous()
+    cdense = km.centers_.contiguous()
+    xs = x_sq.reshape(-1)[:n]
+
+    def library_assign():
+        dist = xs[:, None] - 2.0 * torch.sparse.mm(lib_r, cdense.T.contiguous()) \
+            + (cdense * cdense).sum(1)
+        onehot = torch.nn.functional.one_hot(dist.argmin(1), k).float()
+        return torch.sparse.mm(lib_rt, onehot), onehot.sum(0)
+
+    check(gemm_bad(torch.sparse.mm(lib_r, vd), rv.collect(), int(row_nnz.max())) == 0,
+          "torch.sparse.mm disagrees with R @ V")
+    out_bytes = {"R @ V": 4.0 * NETFLIX_USERS * ALS_FACTORS,
+                 "matmul_ta(R, U)": 4.0 * NETFLIX_MOVIES * ALS_FACTORS}
+    rows = []
+    for name, fn, lib, operand, flops in (
+            ("R @ V", lambda: R @ V, lambda: torch.sparse.mm(lib_r, vd),
+             4.0 * NETFLIX_MOVIES * ALS_FACTORS + out_bytes["R @ V"],
+             2.0 * NETFLIX_RATINGS * ALS_FACTORS),
+            ("matmul_ta(R, U)", lambda: rt.matmul_ta(R, U),
+             lambda: torch.sparse.mm(lib_rt, ud),
+             4.0 * NETFLIX_USERS * ALS_FACTORS + out_bytes["matmul_ta(R, U)"],
+             2.0 * NETFLIX_RATINGS * ALS_FACTORS),
+            (f"K-means assignment, k={k}",
+             lambda: kmod._sparse_center_stats(R, row_valid, cpad, x_sq), library_assign,
+             4.0 * (cpad.numel() + xs.numel() * 2 + cpad.numel() + k),
+             4.0 * NETFLIX_RATINGS * k)):
+        ms = timed(fn)
+        lib_ms = timed(lib)
+        b_ms, b_by = bound(flops, stored + operand, "fp32")
+        rows.append({"case": name, "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"[9] {name}: {ms:.3f} ms (bound {b_ms:.3f} by {b_by}: R's stored "
+              f"bytes once plus the operands; torch.sparse.mm {lib_ms:.3f} ms); "
+              f"{smi}", flush=True)
+    wall["phase_s"] = time.perf_counter() - t_phase
+    print(f"[9] card: {smi}; sparse phase wall: {json.dumps(wall)}", flush=True)
+    return als_launches, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2009,6 +2456,15 @@ def main(argv=None) -> int:
                                     "lazy_plans": lazy[f"stacked_matmul/{route}"]}
         gemm["launches"] += lazy[f"stacked_matmul/{route}"]
     kernels += lm_kernel_lines
+    del hx, hkm
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse_launches, sparse_rows = phase_sparse(torch, gen, smi)
+    for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
+        gemm["launches_by_path"]["sparse"] = sparse_launches[f"stacked_matmul/{route}"]
+        gemm["launches"] += sparse_launches[f"stacked_matmul/{route}"]
+    print(f"[9] sparse ops (torch ops, no TPU kernel): "
+          f"{json.dumps({'card': smi, 'ops': sparse_rows})}", flush=True)
     print(f"[8] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "
           f"{json.dumps(profiles)}")
     emit({"kernels": kernels})

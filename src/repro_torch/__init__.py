@@ -1,7 +1,8 @@
 """repro_torch — the ds-array reproduction on PyTorch and CUDA.
 
 A second package beside ``repro`` (the JAX reference): the same stacked
-``(gn, gm, bn, bm)`` block tensors with ZERO/FILL/DIRTY pad state, the
+``(gn, gm, bn, bm)`` block tensors with ZERO/FILL/DIRTY pad state, dense or
+sparse blocks (``core.sparse``: a stacked COO, ``from_scipy``), the
 blocked GEMM and K-means, with the TPU kernels of that path rewritten as
 CUDA kernels for Hopper (``repro_torch/csrc``).  Creation routines take
 ``device=`` (default ``"cuda"``); everything downstream runs on the device

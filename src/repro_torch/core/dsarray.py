@@ -1,14 +1,23 @@
 """DsArray: the paper's distributed array over one PyTorch tensor.
 
-The port of ``repro.core.dsarray`` (dense blocks).  A ds-array is a 2-D
-array cut into blocks of arbitrary size; here the blocks live in one
-**stacked block tensor** of shape ``(gn, gm, bn, bm)`` (grid dims first,
-block dims last).  Edge blocks are padded, and each array carries a
-**pad state**: ``ZERO`` (pad exactly 0), ``FILL(v)`` (pad is the known
-constant v) or ``DIRTY`` (unknown), derived by running each op on the pad
-constants.  Consumers that need a zero pad (reductions, matmul, structural
-ops) call ``ensure_zero_pad()``, so zero-preserving op chains pay no mask
-pass at all.
+The port of ``repro.core.dsarray``.  A ds-array is a 2-D array cut into
+blocks of arbitrary size; here the blocks live in one **stacked block
+tensor** of shape ``(gn, gm, bn, bm)`` (grid dims first, block dims last).
+Edge blocks are padded, and each array carries a **pad state**: ``ZERO``
+(pad exactly 0), ``FILL(v)`` (pad is the known constant v) or ``DIRTY``
+(unknown), derived by running each op on the pad constants.  Consumers that
+need a zero pad (reductions, matmul, structural ops) call
+``ensure_zero_pad()``, so zero-preserving op chains pay no mask pass at all.
+
+Block formats (paper §4.2: blocks are NumPy arrays OR scipy.sparse CSR):
+``block_format`` is ``"dense"`` for the stacked tensor above and ``"bcoo"``
+for a ``core.sparse.StackedCOO`` over the same grid, which is ZERO-padded
+by construction.  On a sparse array, scalar scale/neg/abs/sqrt, sp ± sp,
+sp * sp, sp * dense, sp / dense, ``astype``, ``transpose``, ``sum``,
+``sp @ dense``, ``matmul_ta(sp, dense)`` and the block-aligned slice stay
+sparse; ``+ scalar``, ``exp``, dense / sp, max/min, the other structural
+ops and ``apply_along_axis`` densify, and a sparse right operand of ``@``
+densifies (the table in ``repro.core.dsarray``, op for op).
 
 Device rule: every creation routine takes ``device=`` (default ``"cuda"``);
 every other op runs where its input tensors are.  Nothing picks the device
@@ -202,13 +211,13 @@ class DsArray:
     """2-D blocked array with a NumPy-like API (paper §4.2.3).
 
     Build one with :func:`from_array`, :func:`zeros`, :func:`full`,
-    :func:`eye` or :func:`random_array`.
+    :func:`eye` or :func:`random_array`; sparse ones with
+    ``core.sparse.from_scipy``, ``random_sparse`` or :meth:`tosparse`.
     """
 
     __slots__ = ("blocks", "grid", "pad_state")
 
-    def __init__(self, blocks: torch.Tensor, grid: BlockGrid,
-                 pad_state: PadState = PAD_ZERO):
+    def __init__(self, blocks, grid: BlockGrid, pad_state: PadState = PAD_ZERO):
         if blocks.ndim != 4:
             raise ValueError(
                 f"stacked block tensor must be rank 4, got {tuple(blocks.shape)}")
@@ -222,6 +231,12 @@ class DsArray:
             raise ValueError(
                 f"stacked grid {tuple(blocks.shape[:2])} smaller than logical "
                 f"grid {grid.grid}")
+        if not isinstance(blocks, torch.Tensor) and pad_state.kind != "zero":
+            # sparse blocks have NO entry in the pad region: the pad is
+            # exactly zero by construction, any other claim is a bug
+            raise ValueError(
+                f"bcoo-blocked ds-arrays are zero-padded by construction, "
+                f"got pad_state={pad_state}")
         self.blocks = blocks
         self.grid = grid
         self.pad_state = pad_state
@@ -249,8 +264,14 @@ class DsArray:
 
     @property
     def block_format(self) -> str:
-        """Storage of the stacked blocks; the port has dense blocks only."""
-        return "dense"
+        """Storage of the stacked blocks: ``"dense"`` (a rank-4 tensor) or
+        ``"bcoo"`` (a ``core.sparse.StackedCOO``), read off the blocks'
+        type, so it can never disagree with the data it describes."""
+        return "dense" if isinstance(self.blocks, torch.Tensor) else "bcoo"
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.block_format == "bcoo"
 
     @property
     def T(self) -> "DsArray":
@@ -267,6 +288,9 @@ class DsArray:
 
     def _remask(self, fill: Number = 0) -> torch.Tensor:
         """Blocks with the pad region forced to ``fill``."""
+        if self.is_sparse:
+            raise RuntimeError("sparse blocks are zero-padded by construction"
+                               " — there is nothing to remask")
         fill_v = torch.tensor(fill, dtype=self.dtype, device=self.device)
         return torch.where(self._mask(), self.blocks, fill_v)
 
@@ -286,21 +310,40 @@ class DsArray:
     # -- materialization ------------------------------------------------------
     def collect(self) -> torch.Tensor:
         """Paper §4.2.3 ``collect``: merge the blocks into one local tensor."""
+        if self.is_sparse:
+            return self.todense().collect()
         gn, gm, bn, bm = self.blocks.shape
         n, m = self.shape
         global_form = self.blocks.permute(0, 2, 1, 3).reshape(gn * bn, gm * bm)
         return global_form[:n, :m]
 
+    # -- block-format conversions (paper: NumPy OR scipy.sparse blocks) ------
+    def todense(self) -> "DsArray":
+        """This array with dense stacked blocks (identity when dense)."""
+        from repro_torch.core import sparse as sparse_mod
+        return sparse_mod.todense(self)
+
+    def tosparse(self, nse: Optional[int] = None) -> "DsArray":
+        """This array with stacked-COO blocks (identity when sparse); see
+        ``core.sparse`` for the format and the op policy."""
+        from repro_torch.core import sparse as sparse_mod
+        return sparse_mod.tosparse(self, nse=nse)
+
     # -- validation -------------------------------------------------------------
     def check_invariants(self) -> "DsArray":
         """Validate the static claims against the data; raises on violation,
-        returns self.  Checked: grid/shape geometry and the pad region
-        matching ``pad_state``."""
+        returns self.  Checked: grid/shape geometry, the pad region matching
+        ``pad_state`` and, for sparse blocks, indices in bounds or with zero
+        data and no entry in the pad region."""
         gn, gm = self.grid.grid
         bn, bm = self.grid.block_shape
         n, m = self.shape
         if n > gn * bn or m > gm * bm:
             raise AssertionError(f"grid {self.grid} does not cover shape")
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            sparse_mod.check_bcoo_invariants(self)
+            return self
         sgn, sgm = self.stacked_grid
         blocks = self.blocks.detach().cpu()
         if blocks.dtype == torch.bfloat16:
@@ -338,6 +381,15 @@ class DsArray:
     @_recordable
     def _binary(self, other, op: Callable, reverse: bool = False) -> "DsArray":
         me = self
+        if me.dtype == torch.bool and type(_scalar_operand(other)) in (int, float):
+            # the reference's weak Python scalar lifts bool to the 32-bit
+            # type of its kind (torch would take int64, or refuse a bool
+            # operand of sub)
+            me = me.astype(torch.int32 if type(_scalar_operand(other)) is int
+                           else torch.float32)
+        if me.is_sparse or (isinstance(other, DsArray) and other.is_sparse):
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.binary(me, other, op, reverse)
         if isinstance(other, DsArray):
             if other.shape != self.shape:
                 raise ValueError(f"shape mismatch {self.shape} vs {other.shape}")
@@ -354,11 +406,6 @@ class DsArray:
             rhs = _scalar_operand(other)
             if rhs is None:
                 return NotImplemented
-            if me.dtype == torch.bool and type(rhs) in (int, float):
-                # the reference's weak Python scalar lifts bool to the
-                # 32-bit type of its kind (torch would take int64, or
-                # refuse a bool operand of sub)
-                me = me.astype(torch.int32 if type(rhs) is int else torch.float32)
             probe_rhs = rhs
         out = op(rhs, me.blocks) if reverse else op(me.blocks, rhs)
         # both pad regions hold known constants at the SAME positions, so the
@@ -402,7 +449,11 @@ class DsArray:
                    pad: Optional[PadState] = None) -> "DsArray":
         """Apply an elementwise function to every block.  The pad state comes
         from running ``fn`` on the pad constant; non-elementwise fns pass
-        ``pad=`` explicitly (``PAD_DIRTY`` when unknown)."""
+        ``pad=`` explicitly (``PAD_DIRTY`` when unknown).  On sparse blocks
+        a zero-preserving ``fn`` maps the stored data; any other densifies."""
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.map_blocks_sparse(self, fn, pad)
         out = fn(self.blocks)
         if out.shape != self.blocks.shape:
             raise ValueError("map_blocks must preserve block shapes")
@@ -421,6 +472,9 @@ class DsArray:
 
     @_recordable
     def astype(self, dtype: torch.dtype) -> "DsArray":
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.astype_sparse(self, dtype)
         pad = self.pad_state
         if pad.kind == "fill":
             # the physical pad is cast too; re-derive the constant the same way
@@ -432,11 +486,18 @@ class DsArray:
     def transpose(self) -> "DsArray":
         """Paper §5.2: per-block transpose + block-grid permutation.  Returns
         a permuted VIEW of the stacked tensor (no copy); the GEMM kernel
-        reads it through its strides."""
+        reads it through its strides.  Sparse blocks swap their grid dims
+        and each entry's indices: O(nnz)."""
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.transpose_sparse(self)
         out = self.blocks.permute(1, 0, 3, 2)
         return DsArray(out, self.grid.transpose(), self.pad_state)
 
     def _pad_grid_to(self, stacked_grid: Tuple[int, int]) -> "DsArray":
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.pad_grid_sparse(self, stacked_grid)
         gn, gm = self.stacked_grid
         tn, tm = stacked_grid
         if (tn, tm) == (gn, gm):
@@ -460,7 +521,9 @@ class DsArray:
     def __matmul__(self, other: "DsArray") -> "DsArray":
         """Blocked matmul: C[i,j] = sum_k A[i,k] @ B[k,j], one launch of the
         stacked GEMM over (grid-k, block-k).  Zero pads on both operands make
-        the padded contraction exact, so the result pad is zero."""
+        the padded contraction exact, so the result pad is zero.  A sparse
+        left operand contracts its stored entries (``local_matmul``'s sparse
+        dispatch); a sparse right operand densifies."""
         from repro_torch.kernels.matmul.ops import local_matmul
         if _lazy_mode():
             from repro_torch.core import expr
@@ -468,6 +531,8 @@ class DsArray:
                 return expr.lift_lazy(self) @ other
         if not isinstance(other, DsArray):
             return NotImplemented
+        if other.is_sparse:
+            other = other.todense()
         if self.shape[1] != other.shape[0]:
             raise ValueError(f"matmul shape mismatch {self.shape} @ {other.shape}")
         if self.block_shape[1] != other.block_shape[0]:
@@ -488,6 +553,9 @@ class DsArray:
     # -- reductions ---------------------------------------------------------
     @_recordable
     def _reduce(self, op: str, axis: Optional[int]):
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.reduce_sparse(self, op, axis)
         integral = not (self.dtype.is_floating_point or self.dtype.is_complex)
         if integral and self.dtype != torch.bool:
             info = torch.iinfo(self.dtype)
@@ -581,11 +649,15 @@ class DsArray:
 
 def matmul_ta(a: DsArray, b: DsArray) -> DsArray:
     """``Aᵀ @ B`` with the transpose folded into the GEMM: ``a`` stays in its
-    untransposed stacked layout and ``local_matmul`` reads it transposed."""
+    untransposed stacked layout and ``local_matmul`` reads it transposed
+    (a sparse ``a`` is contracted by its stored entries; a sparse ``b``
+    densifies)."""
     from repro_torch.core import structural
     from repro_torch.kernels.matmul.ops import local_matmul
     if not isinstance(b, DsArray):
         raise TypeError("matmul_ta wants DsArray operands")
+    if b.is_sparse:
+        b = b.todense()
     if a.shape[0] != b.shape[0]:
         raise ValueError(f"matmul_ta shape mismatch {a.shape}ᵀ @ {b.shape}")
     if a.block_shape[0] != b.block_shape[0]:
@@ -616,6 +688,8 @@ def apply_along_axis(fn: Callable[[torch.Tensor], torch.Tensor], axis: int,
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     a2 = a.ensure_zero_pad()
+    if a2.is_sparse:
+        a2 = a2.todense()      # per-slice fns need the dense block layout
     gn, gm, bn, bm = a2.blocks.shape
     n, m = a2.shape
     each = torch.func.vmap(torch.func.vmap(fn))

@@ -41,10 +41,18 @@ node            records
 ``Rechunk``     re-blocking
 ``ConcatRows``  vertical concat
 ``Shuffle``     pseudo / exact row shuffle
+``Densify``     sparse -> dense
+``ToSparse``    dense -> sparse at a static ``nse``
+``Canonicalize`` sparse duplicates merged, capacity cut to a static ``nse``
 ==============  ==========================================================
 
-Blocks are dense here; the reference's sparse nodes (``Densify``,
-``ToSparse``, ``Canonicalize``) come with the sparse blocks.
+Sparse operands (``core.sparse``) record the eager dispatch's
+classification: a sparse ``Blockwise`` carries a stacked-COO fn (a data
+map, an index merge or a gather), is a fusion boundary in ``core.plan``
+and still CSEs and caches; an op with no zero-preserving sparse form
+records an explicit ``Densify`` first.  Every node's ``nse`` is static:
+sp ± sp adds its operands' capacities, sp * sp takes the smaller, and
+``Canonicalize``/``ToSparse`` take their explicit ``nse``.
 """
 
 from __future__ import annotations
@@ -56,12 +64,11 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import costmodel
+from repro_torch.core import sparse as sparse_mod
 from repro_torch.core.blocking import BlockGrid
-from repro_torch.core.dsarray import (PAD_DIRTY, DsArray, PadState,
+from repro_torch.core.dsarray import (PAD_DIRTY, PAD_ZERO, DsArray, PadState,
                                       _scalar_operand, matmul_ta, pad_state_of)
-
-_SPARSE_LATER = ("sparse blocks are not ported yet (ROADMAP.md §1 item 3); "
-                 "the port's lazy arrays are dense")
 
 # ---------------------------------------------------------------------------
 # The lazy-mode switch.  ``lazy()`` arms recording: the DsArray entry points
@@ -109,16 +116,33 @@ def _is_ds(meta) -> bool:
     return isinstance(meta, DsArray)
 
 
-def _abstract(t: torch.Tensor) -> torch.Tensor:
-    """A ``meta`` tensor of ``t``'s shape and dtype (no data)."""
+def _is_sparse(meta) -> bool:
+    """True for a ds-shaped meta whose blocks are a stacked COO: the
+    ``block_format`` the lazy layer carries along every node."""
+    return _is_ds(meta) and meta.is_sparse
+
+
+def _abstract(t):
+    """A ``meta`` twin of a tensor or stacked COO: shapes, dtypes and
+    flags, no data."""
+    if isinstance(t, sparse_mod.StackedCOO):
+        return sparse_mod.StackedCOO(_abstract(t.data), _abstract(t.indices),
+                                     t.shape, t.indices_sorted,
+                                     t.unique_indices)
     return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
 
 
 def _meta_sig(meta) -> tuple:
-    """Hashable signature of a node's output metadata."""
+    """Hashable signature of a node's output metadata.  Sparse metas add
+    the format, ``nse`` and flags: arrays that differ only in stored-entry
+    capacity must not share memoised metadata."""
     if _is_ds(meta):
+        fmt = ("dense",)
+        if _is_sparse(meta):
+            b = meta.blocks
+            fmt = ("bcoo", b.nse, b.indices_sorted, b.unique_indices)
         return ("ds", tuple(meta.blocks.shape), str(meta.blocks.dtype),
-                meta.grid, meta.pad_state)
+                meta.grid, meta.pad_state) + fmt
     return ("arr", tuple(meta.shape), str(meta.dtype))
 
 
@@ -191,8 +215,10 @@ class Leaf(Expr):
 
     def signature(self):
         g = self.value.grid
+        fmt = ("bcoo", self.value.blocks.nse) if self.value.is_sparse \
+            else ("dense",)
         return ("leaf", g.shape, g.block_shape, self.value.stacked_grid,
-                str(self.value.dtype), self.value.pad_state, "dense")
+                str(self.value.dtype), self.value.pad_state) + fmt
 
     def local_key(self):
         return self.signature()
@@ -254,8 +280,12 @@ class Blockwise(Expr):
         """``fn`` on (1, 1, 1, 1) CPU tensors holding the children's pad
         constants, as the eager ``_probe_binary_pad`` / ``_probe_map_pad``
         do; a 0-d expression operand (value unknown when recorded) or any
-        failure gives DIRTY."""
+        failure gives DIRTY.  A node over a sparse operand is ZERO: the
+        facade records only zero-preserving sparse fns, and sparse results
+        are zero-padded by construction."""
         metas = [c.meta for c in self.children]
+        if any(_is_sparse(m) for m in metas):
+            return PAD_ZERO
         if not all(_is_ds(m) for m in metas):
             return PAD_DIRTY
         if any(m.pad_state.kind == "dirty" for m in metas):
@@ -277,7 +307,10 @@ class Blockwise(Expr):
         ref = next((v for v in vals if isinstance(v, DsArray)), None)
         if ref is None:
             return out
-        return DsArray(out, ref.grid, self.pad)
+        # a sparse result is zero-padded by construction, whatever the
+        # resolved claim (made for the dense fns) says
+        pad = PAD_ZERO if isinstance(out, sparse_mod.StackedCOO) else self.pad
+        return DsArray(out, ref.grid, pad)
 
     def local_key(self):
         return ("bw", self.key)
@@ -345,6 +378,92 @@ class AsType(Expr):
 
     def rebuild(self, children):
         return AsType(children[0], self.dtype)
+
+
+class Densify(Expr):
+    """Block-format conversion sparse -> dense, recorded in front of ops
+    with no zero-preserving sparse form (``+ scalar``, ``exp``, dense / sp,
+    ...): an explicit plan node, so a sparse chain never densifies silently
+    inside a fused body."""
+
+    __slots__ = ()
+
+    def __init__(self, child: Expr):
+        self.children = (child,)
+        self._infer_meta()
+
+    def lower(self, v):
+        return v.todense()
+
+    def local_key(self):
+        return ("densify",)
+
+    def rebuild(self, children):
+        return Densify(children[0])
+
+
+class ToSparse(Expr):
+    """Block-format conversion dense -> sparse at a STATIC ``nse`` (entry
+    capacity per block): nnz is run-time data the recorder cannot see, so
+    the caller chooses the capacity (``costmodel.tosparse_pays`` says when
+    the conversion pays at all)."""
+
+    __slots__ = ("nse",)
+
+    def __init__(self, child: Expr, nse: int):
+        self.nse = int(nse)
+        self.children = (child,)
+        self._infer_meta()
+
+    def lower(self, v):
+        return v.tosparse(nse=self.nse)
+
+    def local_key(self):
+        return ("tosparse", self.nse)
+
+    def rebuild(self, children):
+        return ToSparse(children[0], self.nse)
+
+
+class Canonicalize(Expr):
+    """Capacity re-compaction inside a plan: duplicate indices merged and
+    the capacity cut to a STATIC ``nse``.
+
+    Recorded sp ± sp nodes concatenate entry lists, so a chain's capacity
+    grows as the sum of its operands' ``nse``.  A block holds at most
+    ``bn*bm`` distinct positions, so compacting to that bound keeps every
+    value and a static shape.  The facade inserts this node when
+    ``costmodel.bcoo_recompaction_pays`` says the capacity passed the
+    bound; like every sparse node it is a fusion boundary but CSEs and
+    caches by structure and ``nse``."""
+
+    __slots__ = ("nse",)
+
+    def __init__(self, child: Expr, nse: int):
+        self.nse = int(nse)
+        self.children = (child,)
+        self._infer_meta()
+
+    def lower(self, v):
+        return sparse_mod.canonicalize(v, nse=self.nse)
+
+    def local_key(self):
+        return ("canon", self.nse)
+
+    def rebuild(self, children):
+        return Canonicalize(children[0], self.nse)
+
+
+def _maybe_compact(node: Expr) -> Expr:
+    """``node`` wrapped in :class:`Canonicalize` when its sparse capacity
+    passed the per-block position bound (pigeonhole: the excess slots are
+    duplicates every consumer pays for)."""
+    if not _is_sparse(node.meta):
+        return node
+    bn, bm = node.meta.block_shape
+    if costmodel.bcoo_recompaction_pays(node.meta.blocks.nse, bn * bm):
+        return Canonicalize(node, bn * bm)
+    return node
 
 
 class MatMul(Expr):
@@ -579,7 +698,10 @@ class LazyScalar:
 
     def _binary(self, other, op: Callable, reverse: bool, name: str):
         if isinstance(other, (LazyDsArray, LazyScalar, DsArray)):
-            return _wrap(Blockwise(_ordered(op, reverse), (self.expr, lift(other)),
+            oe = lift(other)
+            if _is_sparse(oe.meta):
+                oe = Densify(oe)    # a scalar of unknown value: densify
+            return _wrap(Blockwise(_ordered(op, reverse), (self.expr, oe),
                                    (name, reverse), elementwise=True))
         s = _scalar_operand(other)
         if s is None:
@@ -663,7 +785,11 @@ class LazyDsArray:
 
     @property
     def block_format(self) -> str:
-        return "dense"
+        return "bcoo" if _is_sparse(self.expr.meta) else "dense"
+
+    @property
+    def is_sparse(self) -> bool:
+        return self.block_format == "bcoo"
 
     @property
     def ndim(self) -> int:
@@ -688,11 +814,21 @@ class LazyDsArray:
     def lazy(self) -> "LazyDsArray":
         return self
 
-    def todense(self):
-        raise NotImplementedError(_SPARSE_LATER)
+    # -- block-format conversions --------------------------------------------
+    def todense(self) -> "LazyDsArray":
+        if not self.is_sparse:
+            return self
+        return LazyDsArray(Densify(self.expr))
 
-    def tosparse(self, nse: Optional[int] = None):
-        raise NotImplementedError(_SPARSE_LATER)
+    def tosparse(self, nse: Optional[int] = None) -> "LazyDsArray":
+        if self.is_sparse:
+            return self
+        if nse is None:
+            raise ValueError(
+                "lazy tosparse needs an explicit nse= (stored entries per "
+                "block): nnz is run-time data the recorder cannot see; "
+                "convert eagerly or pass a capacity")
+        return LazyDsArray(ToSparse(self.expr, nse))
 
     # -- elementwise ---------------------------------------------------------
     def _binary(self, other, op: Callable, reverse: bool = False,
@@ -700,11 +836,33 @@ class LazyDsArray:
         name = name or getattr(op, "__name__", "op")
         if isinstance(other, (LazyDsArray, DsArray)):
             a, b = _align(self.expr, lift(other))
+            fa, fb = _is_sparse(a.meta), _is_sparse(b.meta)
+            if fa or fb:
+                # the eager dispatch's classification; sparse Blockwise
+                # nodes carry stacked-COO fns and are fusion boundaries
+                mode = sparse_mod.classify_binary(
+                    op, fa, ("ds", fb, b.meta.dtype), reverse, a.meta.dtype)
+                if mode == "pair":
+                    # sp ± sp concatenates entry lists: compact the capacity
+                    # back to the block bound once growth stops paying
+                    return LazyDsArray(_maybe_compact(Blockwise(
+                        sparse_mod.pair_fn(op, reverse), (a, b),
+                        ("sp-pair", name, reverse), pad=PAD_ZERO,
+                        elementwise=True)))
+                if mode == "gather":
+                    return LazyDsArray(Blockwise(
+                        sparse_mod.gather_fn(_ordered(op, reverse), fa), (a, b),
+                        ("sp-gather", name, reverse), pad=PAD_ZERO,
+                        elementwise=True))
+                a = Densify(a) if fa else a
+                b = Densify(b) if fb else b
             return LazyDsArray(Blockwise(_ordered(op, reverse), (a, b),
                                          (name, reverse), elementwise=True))
         if isinstance(other, LazyScalar):
+            # the scalar's value is unknown when recorded, so nothing proves
+            # the op zero-preserving: a sparse operand densifies
             return LazyDsArray(Blockwise(_ordered(op, reverse),
-                                         (self.expr, other.expr),
+                                         (self.todense().expr, other.expr),
                                          (name, reverse), elementwise=True))
         s = _scalar_operand(other)
         if s is None:
@@ -715,6 +873,14 @@ class LazyDsArray:
             me = me.astype(torch.int32 if type(s) is int else torch.float32)
         if isinstance(s, torch.Tensor):
             s = s.detach().cpu()    # baked once: no host sync in the plan
+        if me.is_sparse:
+            if sparse_mod.classify_binary(op, True, s, reverse,
+                                          me.dtype) == "data":
+                return LazyDsArray(Blockwise(
+                    sparse_mod.data_map_fn(op, s, reverse), (me.expr,),
+                    ("sp-data", name, reverse, _scalar_key(s)), pad=PAD_ZERO,
+                    elementwise=True))
+            me = me.todense()
         fn = (lambda x: op(s, x)) if reverse else (lambda x: op(x, s))
         return LazyDsArray(Blockwise(fn, (me.expr,),
                                      (name, reverse, _scalar_key(s)),
@@ -757,6 +923,13 @@ class LazyDsArray:
         # the plan key holding it keeps the id stable); a user fn is not
         # marked elementwise: it may depend on position
         key = _key if _key is not None else ("map", fn, pad)
+        if self.is_sparse:
+            if pad is None and sparse_mod.zero_preserving_map(fn, self.dtype):
+                return LazyDsArray(Blockwise(
+                    sparse_mod.sparse_map_fn(fn), (self.expr,), ("sp",) + key,
+                    pad=PAD_ZERO, elementwise=_elementwise))
+            return self.todense().map_blocks(fn, pad=pad, _key=_key,
+                                             _elementwise=_elementwise)
         return LazyDsArray(Blockwise(fn, (self.expr,), key, pad=pad,
                                      elementwise=_elementwise))
 

@@ -34,6 +34,11 @@ stages:
    (``_OPT_CACHE``), so recording an unchanged DAG again skips the
    optimizer.
 
+Block formats: a sparse ``Blockwise`` (its fn takes or gives a stacked
+COO) is a **fusion boundary** — a stacked-COO fn does not compose with
+dense per-block fns — but sparse nodes still CSE, and sparse plans cache by
+structure and ``nse`` like any other.
+
 Counters (group ``plan``): ``hits``/``misses`` of ``_CACHE``, ``launches``
 (plan executions), ``opt_runs``/``opt_skips`` and ``eager_launches``
 (:meth:`Plan.execute_eager`).  Spans: ``plan.optimize`` and ``plan.launch``;
@@ -51,8 +56,9 @@ import torch
 
 from repro_torch.core import expr as _expr
 from repro_torch.core.dsarray import DsArray
+from repro_torch.core.sparse import StackedCOO
 from repro_torch.core.expr import (ArrayLeaf, Blockwise, Expr, Leaf, MatMul,
-                                   Transpose, _is_ds)
+                                   Transpose, _is_ds, _is_sparse)
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import tracing as _tracing
 
@@ -182,8 +188,14 @@ def _fuse(roots: Sequence[Expr]) -> Tuple[List[Expr], int]:
                 return slot_of[id(child)]
 
             for orig_c, new_c in zip(node.children, kids):
+                # sparse nodes are fusion boundaries: a stacked-COO fn does
+                # not inline into a dense per-block body, nor the reverse
                 fusible = (isinstance(new_c, Blockwise)
                            and _is_ds(new_c.meta)
+                           and not _is_sparse(new_c.meta)
+                           and not _is_sparse(out.meta)
+                           and not any(_is_sparse(gc.meta)
+                                       for gc in new_c.children)
                            and counts.get(id(orig_c), 2) == 1
                            and new_c.meta.blocks.shape == out.meta.blocks.shape
                            and new_c.meta.grid == out.meta.grid)
@@ -359,6 +371,7 @@ def _synchronize(out: tuple) -> None:
     """Wait for the card when any result lives on it."""
     for v in out:
         t = v.blocks if isinstance(v, DsArray) else v
+        t = t.data if isinstance(t, StackedCOO) else t
         if isinstance(t, torch.Tensor) and t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
             return

@@ -48,8 +48,10 @@ def source_rows(generator: torch.Generator, kind: str, shape: Tuple[int, int],
 
 
 def apply_rows(a: DsArray, kind: str, src: torch.Tensor) -> DsArray:
-    """``a`` with its rows gathered from ``src`` (from :func:`source_rows`)."""
+    """``a`` with its rows gathered from ``src`` (from :func:`source_rows`);
+    a sparse ``a`` densifies first (a shuffle moves positions)."""
     from repro_torch.core import structural
+    a = structural._as_dense(a)
     if kind == "pseudo":
         # rows tile the block-rows evenly, so the pad columns are permuted
         # among themselves and the pad state carries over

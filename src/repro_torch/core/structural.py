@@ -1,9 +1,12 @@
 """Block-native structural ops for ds-arrays (slice / filter / rechunk /
 concat / gram).
 
-The port of ``repro.core.structural`` (dense blocks).  Every op consumes and produces the ``(gn, gm, bn, bm)`` stacked block tensor,
-never the ``(n, m)`` global layout, and re-establishes the pad-is-zero
-invariant before returning.
+The port of ``repro.core.structural``.  Every op consumes and produces the
+``(gn, gm, bn, bm)`` stacked block tensor, never the ``(n, m)`` global
+layout, and re-establishes the pad-is-zero invariant before returning.
+Sparse operands densify first (per-position data movement has no form over
+stored entries), except for the block-aligned slice, which slices the
+stacked COO's grid dims, and ``gram``, which contracts the stored entries.
 """
 
 from __future__ import annotations
@@ -15,6 +18,12 @@ import torch
 
 from repro_torch.core.blocking import (BlockGrid, can_regroup, ceil_div,
                                        grid_span, is_aligned_slice)
+
+
+def _as_dense(a):
+    """``a`` with dense blocks: the structural ops densify a sparse operand
+    by policy (the ``core.dsarray`` op table)."""
+    return a.todense() if a.is_sparse else a
 
 
 def _mask_axes(blocks: torch.Tensor, n: Optional[int] = None,
@@ -87,7 +96,7 @@ def index_vector(idx, size: int, device, what: str,
 def take_rows(a, idx, out_bn: Optional[int] = None, checked: bool = False):
     """Integer-array row selection (the paper's 'filtering'), block-native.
     ``checked``: see :func:`index_vector`."""
-    a = a.ensure_zero_pad()  # gathers re-use the source col pad
+    a = _as_dense(a).ensure_zero_pad()  # gathers re-use the source col pad
     n, m = a.shape
     idx = index_vector(idx, n, a.device, "row", checked)
     p = int(idx.shape[0])
@@ -102,7 +111,7 @@ def take_rows(a, idx, out_bn: Optional[int] = None, checked: bool = False):
 
 def take_cols(a, idx, out_bm: Optional[int] = None, checked: bool = False):
     """Column analogue of :func:`take_rows` (gather on the transposed grid)."""
-    a = a.ensure_zero_pad()
+    a = _as_dense(a).ensure_zero_pad()
     n, m = a.shape
     idx = index_vector(idx, m, a.device, "col", checked)
     p = int(idx.shape[0])
@@ -124,7 +133,7 @@ def take_cols(a, idx, out_bm: Optional[int] = None, checked: bool = False):
 def aligned_slice(a, rows: slice, cols: slice):
     """``A[r0:r1, c0:c1]`` with r0/c0 on block boundaries and unit step: a
     grid slice (a view) plus an edge remask when the slice stops mid-block."""
-    a = a.ensure_zero_pad()
+    a = _as_dense(a).ensure_zero_pad()
     n, m = a.shape
     bn, bm = a.block_shape
     r0, r1, rs = rows.indices(n)
@@ -178,6 +187,14 @@ def getitem(a, key, checked: bool = False):
 
     def is_full(kind, sel, size):
         return kind == "aligned" and sel.indices(size) == (0, size, 1)
+
+    if a.is_sparse and rkind == "aligned" and ckind == "aligned":
+        # a block-aligned selection of a sparse array slices the stacked
+        # COO's grid dims: no densify
+        if is_full(rkind, rsel, a.shape[0]) and is_full(ckind, csel, a.shape[1]):
+            return a
+        from repro_torch.core import sparse as sparse_mod
+        return sparse_mod.aligned_slice_sparse(a, rsel, csel)
 
     out = a
     # grid slices first (cheapest: shrink before gathering)
@@ -290,7 +307,7 @@ def rechunk(a, block_shape: Tuple[int, int]):
     block_shape = (int(block_shape[0]), int(block_shape[1]))
     if block_shape == a.block_shape:
         return a
-    a = a.ensure_zero_pad()
+    a = _as_dense(a).ensure_zero_pad()
     grid = BlockGrid(a.shape, block_shape)   # validates block_shape > 0
     return type(a)(_rechunk_blocks(a.blocks, a.shape, block_shape), grid)
 
@@ -317,7 +334,7 @@ def concat_rows(arrays: Sequence):
             raise ValueError(
                 f"concat_rows column mismatch: {a.shape[1]} != {m}")
     bs = arrays[0].block_shape
-    parts = [rechunk(a, bs).ensure_zero_pad() for a in arrays]
+    parts = [_as_dense(rechunk(a, bs)).ensure_zero_pad() for a in arrays]
     parts = [p for p in parts if p.shape[0] > 0] or parts[:1]
     bn, bm = bs
     total = sum(p.shape[0] for p in parts)
@@ -353,7 +370,13 @@ def concat_rows(arrays: Sequence):
 def gram(a) -> torch.Tensor:
     """``AᵀA`` as a dense ``(m, m)`` tensor, computed per block: one einsum
     over the stacked tensor with fp32 accumulation (outside any kernel, as
-    the reference leaves it), never the ``(n, m)`` global layout."""
+    the reference leaves it), never the ``(n, m)`` global layout.  A sparse
+    ``a`` is the left operand of ``matmul_ta`` with its dense form on the
+    right: the stored entries are contracted, ``a`` itself never
+    densifies."""
+    if a.is_sparse:
+        from repro_torch.core.dsarray import matmul_ta
+        return matmul_ta(a, a.todense()).collect().to(a.dtype)
     b = a.ensure_zero_pad().blocks  # zero pad contributes nothing
     acc = torch.promote_types(b.dtype, torch.float32) \
         if b.dtype.is_floating_point else b.dtype

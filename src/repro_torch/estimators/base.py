@@ -61,8 +61,9 @@ class BaseEstimator:
     @staticmethod
     def _validate_x(x, default_block_rows: int = 128,
                     device="cuda") -> DsArray:
-        """``x`` as a 2-D ds-array: a DsArray passes through untouched, a
-        raw 2-D array is blocked with a default grid on ``device``."""
+        """``x`` as a 2-D ds-array: a DsArray (dense or sparse) passes
+        through untouched — validation never densifies a sparse input — and
+        a raw 2-D array is blocked with a default grid on ``device``."""
         if isinstance(x, DsArray):
             return x
         arr = np.asarray(x)

@@ -457,3 +457,132 @@ def test_lazy_hot_loop_optimizes_once_on_the_card(card):
     assert (st["opt_runs"], st["opt_skips"], st["misses"], st["hits"]) == \
         (1, 19, 1, 19), st
     assert mk.stacked_matmul.launches == before + 80     # lazy 40, eager 40
+
+
+# ---------------------------------------------------------------------------
+# Sparse blocks: products and the Lloyd step over stored entries
+# ---------------------------------------------------------------------------
+
+
+def _sparse_mid(card, seed):
+    """A 40,000 x 4,000 ratings-like matrix (1.5 % stored, ratings 1..5) as
+    a scipy CSR and as a sparse ds-array with blocks (4096, 1024)."""
+    import repro_torch as pt
+    ssp = pytest.importorskip("scipy.sparse")
+    rng = np.random.default_rng(seed)
+    mat = ssp.random(40_000, 4_000, density=0.015, random_state=seed, format="csr",
+                     data_rvs=lambda k: rng.integers(1, 6, k)).astype(np.float32)
+    return mat, pt.from_scipy(mat, (4096, 1024), device=card)
+
+
+def _stored_bytes(r) -> int:
+    return r.blocks.data.numel() * r.blocks.data.element_size() + \
+        r.blocks.indices.numel() * 4
+
+
+def _added_peak(fn):
+    """(result, bytes): ``fn()`` and the device memory it added at its peak."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _within_depth(out, ref, depth: int):
+    """|out - ref| <= 8·eps32·√depth·rms(ref) + eps32·|ref|: the fp32 error
+    of a depth-long sum in another order (chip_smoke's GEMM limit); a
+    zeroed output must fail it."""
+    ref = ref.double()
+    rms = float(ref.pow(2).mean().sqrt())
+    eps = torch.finfo(torch.float32).eps
+    lim = 8 * eps * depth ** 0.5 * rms + eps * ref.abs()
+    assert bool(((out.double() - ref).abs() <= lim).all())
+    assert not bool(((0 * ref - ref).abs() <= lim).all())
+
+
+@pytest.fixture
+def never_densified(monkeypatch):
+    from repro_torch.core import sparse as smod
+    from repro_torch.kernels.matmul import ops as mops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a sparse operand was densified")
+    for mod, name in ((smod, "todense"), (smod, "_to_dense_blocks"),
+                      (mops, "_to_dense_blocks")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+def test_sparse_products_on_the_card(card, never_densified):
+    """``R @ V`` and ``matmul_ta(R, U)`` (f = 16): float64 agreement, the
+    same bits twice, added peak memory below half of R's stored bytes, no
+    GEMM kernel launched."""
+    import repro_torch as pt
+    mat, r = _sparse_mid(card, 3)
+    g = torch.Generator(device=card).manual_seed(4)
+    v = torch.randn((4_000, 16), generator=g, device=card)
+    u = torch.randn((40_000, 16), generator=g, device=card)
+    vd = pt.from_array(v, (1024, 16), device=card)
+    ud = pt.from_array(u, (4096, 16), device=card)
+    m64 = mat.astype(np.float64)
+    before = mk.stacked_matmul.launches
+    rv, rv_added = _added_peak(lambda: r @ vd)
+    rtu, rtu_added = _added_peak(lambda: pt.matmul_ta(r, ud))
+    assert mk.stacked_matmul.launches == before
+    assert torch.equal((r @ vd).blocks, rv.blocks)
+    assert torch.equal(pt.matmul_ta(r, ud).blocks, rtu.blocks)
+    assert torch.equal((r.T @ ud).blocks, rtu.blocks)
+    row_depth = int(np.diff(mat.indptr).max())
+    col_depth = int(np.bincount(mat.indices, minlength=4_000).max())
+    _within_depth(rv.collect(), torch.from_numpy(m64 @ v.double().cpu().numpy()).to(card),
+                  row_depth)
+    _within_depth(rtu.collect(),
+                  torch.from_numpy(np.asarray(m64.T @ u.double().cpu().numpy())).to(card),
+                  col_depth)
+    half = _stored_bytes(r) / 2
+    assert rv_added < half and rtu_added < half, (rv_added, rtu_added, half)
+
+
+def test_sparse_lloyd_step_on_the_card(card, never_densified):
+    """One sparse Lloyd assignment (k = 8): labels are the float64 argmin
+    except at near-ties, sums and counts are float64 sums under those
+    labels, the same bits twice, added peak below half of R's stored bytes,
+    no K-means kernel launched."""
+    from repro_torch.algorithms import kmeans as kmod
+    mat, r = _sparse_mid(card, 5)
+    g = torch.Generator(device=card).manual_seed(6)
+    gn, gm, bn, bm = r.blocks.shape
+    k, n = 8, r.shape[0]
+    centers = torch.zeros((k, gm * bm), device=card)
+    centers[:, :4_000] = torch.rand((k, 4_000), generator=g, device=card) * 0.2
+    rows = torch.arange(gn * bn, device=card).reshape(gn, bn)
+    row_valid = rows < n
+    x_sq = kmod._row_sq_norms(r)
+    before = kk.kmeans_assign_stacked.launches
+    (labels, sums, counts), added = _added_peak(
+        lambda: kmod._sparse_center_stats(r, row_valid, centers, x_sq))
+    again = kmod._sparse_center_stats(r, row_valid, centers, x_sq)
+    assert kk.kmeans_assign_stacked.launches == before
+    for a, b in zip((labels, sums, counts), again):
+        assert torch.equal(a, b)
+    assert added < _stored_bytes(r) / 2, added
+    m64 = mat.astype(np.float64)
+    c64 = centers[:, :4_000].double().cpu().numpy()
+    x_sq64 = np.asarray(m64.multiply(m64).sum(axis=1)).ravel()
+    dist64 = x_sq64[:, None] - 2 * np.asarray(m64 @ c64.T) + (c64 * c64).sum(1)
+    dist32 = (x_sq[..., None] - 2.0 * kmod._dots(r, centers)
+              + (centers * centers).sum(1)).reshape(-1, k)[:n].double().cpu().numpy()
+    err = np.abs(dist32 - dist64).max()
+    got = labels.reshape(-1)[:n].cpu().numpy()
+    diff = got != dist64.argmin(1)
+    two = np.sort(dist64[diff], axis=1)[:, :2]
+    assert np.all(two[:, 1] - two[:, 0] < 4 * err) and diff.sum() <= 4
+    onehot = np.eye(k)[got]
+    want_sums = np.asarray(m64.T @ onehot).T                   # (k, 4000)
+    _within_depth(sums[:, :4_000], torch.from_numpy(want_sums).to(card),
+                  int(onehot.sum(0).max()))
+    assert float(sums[:, 4_000:].abs().max()) == 0.0
+    np.testing.assert_array_equal(counts.cpu().numpy(), onehot.sum(0))

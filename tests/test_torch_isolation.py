@@ -31,6 +31,9 @@ import repro_torch.kernels.ssd.ops
 import repro_torch.core.expr
 import repro_torch.core.plan
 import repro_torch.core.shuffle
+import repro_torch.core.sparse
+import repro_torch.core.costmodel
+import scipy.sparse
 import torch
 from repro_torch.algorithms import KMeans
 x = pt.from_array(np.random.default_rng(0).normal(size=(40, 3)), (16, 2),
@@ -44,6 +47,12 @@ with pt.lazy():
     s = pt.pseudo_shuffle(torch.Generator().manual_seed(0), y)
     c = pt.concat_rows([s, x[3:10]])
 pt.compute_multi(y.T @ x, c.norm(axis=1), y.sum(axis=0), y.mean())
+r = pt.from_scipy(scipy.sparse.random(40, 3, density=0.5, random_state=0),
+                  (16, 2), device="cpu")
+KMeans(n_clusters=2, max_iter=5).fit(r).score(r)
+pt.compute_multi((r.lazy() * r).sum(axis=1), r.lazy().T @ x,
+                 (r * 2.0 + r).lazy().todense())
+repro_torch.core.sparse.canonicalize(r + r)
 repro_torch.launch.serve.main(["--smoke", "--device", "cpu", "--batch", "1",
                                "--prompt-len", "3", "--gen", "2"])
 loaded = sorted(m for m in sys.modules

@@ -616,10 +616,14 @@ def test_lazy_mode_is_scoped_and_reentrant():
         with pexpr.suspend_lazy():
             assert isinstance(a + 1.0, pt.DsArray)
     assert isinstance(a + 1.0, pt.DsArray)
-    # the sparse nodes wait for sparse blocks
-    for conv in (a.lazy().todense, a.lazy().tosparse):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3"):
-            conv()
+    # the format conversions record (tests/test_torch_sparse.py holds
+    # their values): dense todense is the identity, a lazy tosparse needs
+    # an explicit nse
+    lz = a.lazy()
+    assert lz.todense() is lz
+    with pytest.raises(ValueError, match="nse"):
+        lz.tosparse()
+    assert isinstance(lz.tosparse(nse=4).expr, pexpr.ToSparse)
 
 
 # ---------------------------------------------------------------------------
