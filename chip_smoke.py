@@ -135,6 +135,29 @@ raises and the script exits non-zero):
    of ``R @ V``, ``matmul_ta`` and one assignment below half of R's stored
    bytes; their times beside the bytes bound and ``torch.sparse.mm``.
 
+10. the estimators through their entry points, each fit, predict,
+    transform and score timed (CUDA-synchronised) with its ``stacked_matmul``
+    launches by route and added peak memory: on phase 4's samples (rebuilt
+    from ``--seed``; y linear in x plus noise; the blob ids as classes)
+    ``PCA(8)`` and ``frobenius``, ``tsqr``, ``LinearRegression()`` (which
+    must pick the normal equations), ``LinearRegression(solver="tsqr")`` and
+    ``Ridge(alpha=1)``, ``RandomForestClassifier()`` on the 64 blob ids, and
+    an RBF ``CascadeSVM`` (sv_cap 64, 3 iterations) on X's first block row
+    re-blocked into 64 chunks of 4,096 rows (a cascade node's dual is
+    rows x rows); on phase 9's R ``ALS(16)`` (10 iterations, no convergence
+    check: the reference's dense ``u @ vᵀ`` is 34 GB there), fitted twice
+    for the same bits and scored on ``R[:32768]``, and ``PCA(16,
+    center=False)``.  Checks against float64 on the card: PCA against the
+    same power iteration from the same start and each variance against
+    the data's along its component; ``‖QR − X‖`` and ``‖QᵀQ − I‖``; the
+    normal equations' backward error and ``predict == X @ coef_ +
+    intercept_``; the forest's arrays equal to a CPU fit of the first
+    65,536 rows and its predictions to a Python walk of the trees; the
+    CSVM's decision values from ``sv_``, ``dual_coef_`` and
+    ``intercept_``; both ALS half-steps; each with a wrong answer that must
+    fail.  The PCA and CSVM plans are optimised once; no GEMM takes the
+    plain version.
+
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card it exits non-zero and prints no result.
@@ -969,6 +992,16 @@ def phase_lm_kernels(torch, gen):
     sys.stdout.flush()
 
 
+def blob_data(torch, gen):
+    """(blob ids, samples): N_ROWS x N_FEATURES fp32 in N_CLUSTERS Gaussian
+    blobs of unit variance, centers uniform in [-10, 10), drawn from ``gen``."""
+    n, m, k = N_ROWS, N_FEATURES, N_CLUSTERS
+    true_centers = torch.rand(k, m, generator=gen, device="cuda") * 20 - 10
+    truth = torch.randint(0, k, (n,), generator=gen, device="cuda")
+    data = true_centers[truth] + torch.randn(n, m, generator=gen, device="cuda")
+    return truth, data
+
+
 def main_path(torch, gen):
     """Phase 4: the main path through the public entry points."""
     import repro_torch as rt
@@ -979,9 +1012,7 @@ def main_path(torch, gen):
     from repro_torch.obs import registry, tracing
 
     n, m, k = N_ROWS, N_FEATURES, N_CLUSTERS
-    true_centers = torch.rand(k, m, generator=gen, device="cuda") * 20 - 10
-    truth = torch.randint(0, k, (n,), generator=gen, device="cuda")
-    data = true_centers[truth] + torch.randn(n, m, generator=gen, device="cuda")
+    _, data = blob_data(torch, gen)
     sq = torch.rand(SQUARE, SQUARE, generator=gen, device="cuda") - 0.5
     sq2 = torch.rand(SQUARE, SQUARE, generator=gen, device="cuda") - 0.5
     torch.cuda.synchronize()
@@ -2393,9 +2424,485 @@ def phase_sparse(torch, gen, smi):
         print(f"[9] {name}: {ms:.3f} ms (bound {b_ms:.3f} by {b_by}: R's stored "
               f"bytes once plus the operands; torch.sparse.mm {lib_ms:.3f} ms); "
               f"{smi}", flush=True)
+    del lib_r, lib_rt, vd, ud
     wall["phase_s"] = time.perf_counter() - t_phase
     print(f"[9] card: {smi}; sparse phase wall: {json.dumps(wall)}", flush=True)
-    return als_launches, rows
+    return als_launches, rows, (R, csr, trip)
+
+# ---------------------------------------------------------------------------
+# phase 10: the estimators
+# ---------------------------------------------------------------------------
+
+PCA_K, SPARSE_PCA_K = 8, 16         # components: the dense and the Netflix PCA
+PCA_ITERS_DEFAULT = 30              # PCA's n_iter default (the reference's)
+Y_NOISE = 0.1                       # y = x·w + 0.5 + Y_NOISE·N(0, 1)
+RIDGE_ALPHA = 1.0
+CSVM_ROWS = X_BLOCK[0]              # the CSVM's cut: X's first block row ...
+CSVM_BLOCK = (X_BLOCK[0] // 64, N_FEATURES)   # ... re-blocked into 64 chunks
+CSVM_CAP, CSVM_ITERS = 64, 3
+FOREST_SLICE = X_BLOCK[0] // 4      # rows fitted on the card and on the CPU
+EST_SAMPLE = 4_096                  # rows whose outputs are recomputed in float64
+WALK_ROWS = 1_024                   # rows walked through the trees in Python
+ALS_ITERS = 10
+# float64 limits, each from the fp32 error of the computation it checks:
+# LIN_ERRS x eps32 of backward error for the normal equations (the Gram is
+# a long fp32 sum); TSQR_ERRS·m·eps32 for Householder QR; PCA_ANGLE_ERRS x
+# eps32 x iterations x λ1/λk for a power-iteration column; a variance to 1e-4
+LIN_ERRS, TSQR_ERRS, PCA_ANGLE_ERRS, ALS_ERRS = 64, 8, 100, 8
+VAR_RTOL = 1e-4
+
+
+class Checks:
+    """Phase 10's checks: each result beside its limit, failures gathered
+    and raised together at the end of the phase (so one run prints every
+    number)."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, cond, msg: str) -> None:
+        if not cond:
+            self.failed.append(msg)
+            print(f"[10] FAILED: {msg}", flush=True)
+
+    def control(self, fails, what: str) -> None:
+        self(fails, f"control '{what}' passed its check")
+
+    def raise_any(self) -> None:
+        check(not self.failed, "; ".join(self.failed))
+
+
+def est_step(torch, rec, name, fn):
+    """``fn()`` with its CUDA-synchronised wall seconds, ``stacked_matmul``
+    launches by route and added peak device memory kept in ``rec``."""
+    before = ds_counts()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec["wall_s"][name] = time.perf_counter() - t0
+    rec["added_mb"][name] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    after = ds_counts()
+    rec["launches"][name] = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+    return out
+
+
+def chunked_gram64(torch, data, y):
+    """float64 XᵀX, column sums, Xᵀy and Σy of the samples, a million rows
+    at a time."""
+    m = data.shape[1]
+    g = torch.zeros((m, m), dtype=torch.float64, device="cuda")
+    cs = torch.zeros(m, dtype=torch.float64, device="cuda")
+    xty = torch.zeros(m, dtype=torch.float64, device="cuda")
+    for lo in range(0, data.shape[0], SAMPLE_ROWS):
+        c = data[lo:lo + SAMPLE_ROWS].double()
+        yc = y[lo:lo + SAMPLE_ROWS].double()
+        g += c.T @ c
+        cs += c.sum(0)
+        xty += c.T @ yc
+    return g, cs, xty, float(y.double().sum())
+
+
+def power64(torch, apply, q0, iters: int):
+    """The power iteration of ``pca`` in float64: ``q <- qr(apply(q))``."""
+    q = torch.linalg.qr(q0.double())[0]
+    for _ in range(iters):
+        q = torch.linalg.qr(apply(q))[0]
+    return q
+
+
+def pca_checks(torch, ck, what, comps, var, q64, rayleigh, lam_ratio, iters):
+    """``comps`` (k, m) against the float64 iteration ``q64`` (m, k) from the
+    same start (each component one of its columns up to sign, within
+    PCA_ANGLE_ERRS·eps32·iters·λ1/λk), and each explained variance against
+    the float64 variance of the data along that component; the components
+    rotated by one index must fail the variance check."""
+    eps = torch.finfo(torch.float32).eps
+    comps = comps.double()
+    dots = (comps @ q64).abs()
+    match = dots.argmax(1)
+    ck(sorted(match.tolist()) == list(range(comps.shape[0])),
+       f"{what}: components match float64 columns {match.tolist()}")
+    sin = float((1 - dots.max(1).values.clamp(max=1) ** 2).clamp(min=0).sqrt().max())
+    lim = PCA_ANGLE_ERRS * eps * iters * lam_ratio
+    ck(sin <= lim, f"{what}: sin(angle) {sin:.3e} to the float64 iteration, limit {lim:.3e}")
+    rq = rayleigh(comps)
+    vrel = float(((var.double() - rq).abs() / rq).max())
+    ck(vrel <= VAR_RTOL, f"{what}: explained variance rel err {vrel:.3e}, limit {VAR_RTOL}")
+    rot = rayleigh(comps.roll(1, 0))
+    ck.control(float(((var.double() - rot).abs() / rot).max()) > VAR_RTOL,
+               f"{what}: components rotated by one index")
+    ck(bool((var[1:] <= var[:-1]).all()), f"{what}: variances not in descending order")
+    print(f"[10] {what}: each component a float64-iteration column up to sign "
+          f"(max sin {sin:.3e}, limit {lim:.3e}; λ1/λk {lam_ratio:.2f}); "
+          f"explained variance rel err {vrel:.3e} (limit {VAR_RTOL}); rotated "
+          f"components fail", flush=True)
+    return sin, vrel
+
+
+def phase_estimators(torch, seed, smi, sparse):
+    """Phase 10: every estimator through its entry points, dense at phase
+    4's shape and sparse at phase 9's; returns the ``stacked_matmul``
+    launches of the estimator calls by route."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.algorithms import ALS, PCA, frobenius, tsqr
+    from repro_torch.algorithms import linalg as plin
+    from repro_torch.core import plan
+    from repro_torch.estimators import (CascadeSVM, LinearRegression,
+                                        RandomForestClassifier, Ridge)
+    from repro_torch.obs import registry
+
+    t_phase = time.perf_counter()
+    ck = Checks()
+    eps = torch.finfo(torch.float32).eps
+    rec = {"wall_s": {}, "launches": {}, "added_mb": {}}
+    plain0 = registry.snapshot("gemm")["gemm.dispatch_plain"]
+    ds_counts(zero=True)
+
+    def step(name, fn):
+        return est_step(torch, rec, name, fn)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    truth, data = blob_data(torch, gen)          # phase 4's samples
+    n, m = data.shape
+    w_true = torch.randn(m, generator=gen, device="cuda")
+    y = data @ w_true + 0.5 + Y_NOISE * torch.randn(n, generator=gen, device="cuda")
+    idx = torch.randperm(n, generator=gen, device="cuda")[:EST_SAMPLE]
+    cidx = torch.randperm(CSVM_ROWS, generator=gen, device="cuda")[:EST_SAMPLE]
+    g64, cs64, xty64, ysum = chunked_gram64(torch, data, y)
+    mu64 = cs64 / n
+    cov64 = (g64 - n * torch.outer(mu64, mu64)) / (n - 1)
+    x = rt.from_array(data, X_BLOCK, device="cuda")
+    torch.cuda.synchronize()
+
+    # 1. PCA (the reference's defaults) and frobenius
+    plan.clear_cache()
+    pca_est = step("pca_fit", lambda: PCA(n_components=PCA_K).fit(x))
+    st = plan.cache_stats()
+    want_st = {"opt_runs": 1, "opt_skips": PCA_ITERS_DEFAULT - 1, "misses": 1,
+               "hits": PCA_ITERS_DEFAULT - 1}
+    ck({k: st[k] for k in want_st} == want_st, f"PCA plan counters {st}")
+    proj = step("pca_transform", lambda: pca_est.transform(x))
+    pca_score = pca_est.score(x)
+    ev64, evec64 = torch.linalg.eigh(cov64)
+    ev64, evec64 = ev64.flip(0), evec64.flip(1)
+    q64 = power64(torch, lambda q: cov64 @ q,
+                  plin._initial_q(m, PCA_K, 0, "cuda"), PCA_ITERS_DEFAULT)
+    rq64 = ((q64.T @ cov64) * q64.T).sum(1)
+    pca_checks(torch, ck, f"PCA({PCA_K}) {n}x{m}", pca_est.components_,
+               pca_est.explained_variance_, q64,
+               lambda c: ((c @ cov64) * c).sum(1),
+               float(rq64.max() / rq64.min()), PCA_ITERS_DEFAULT)
+    # the overlap with the covariance's top eigenvectors, checked where the
+    # eigen-gap makes PCA_ITERS_DEFAULT iterations converge
+    comps64 = pca_est.components_.double()
+    gaps = []
+    for j in range(1, PCA_K + 1):
+        rho = float((ev64[j] / ev64[j - 1]) ** PCA_ITERS_DEFAULT)
+        sig = float(torch.linalg.svdvals(evec64[:, :j].T @ comps64[:j].T).min())
+        gaps.append({"j": j, "gap_ratio": float(ev64[j] / ev64[j - 1]),
+                     "ratio_pow_iters": rho, "overlap": sig})
+        if 100 * rho <= 0.1:
+            ck(1 - sig <= 100 * rho, f"PCA top-{j} subspace overlap {sig} (bound {100 * rho})")
+    print(f"[10] PCA: covariance eigenvalues {[round(float(v), 3) for v in ev64[:PCA_K + 1]]}; "
+          f"the leading-j subspace's overlap with the top-j eigenvectors (checked "
+          f"where 100·(λ_(j+1)/λ_j)^{PCA_ITERS_DEFAULT} <= 0.1): {json.dumps(gaps)}; "
+          f"explained variance {pca_est.explained_variance_.tolist()}; score {pca_score:.6f}",
+          flush=True)
+    ref = (data[idx].double() - mu64) @ comps64.T
+    got = proj.collect()[idx]
+    ck(gemm_bad(got, ref, m) == 0, "PCA transform beyond the GEMM limit")
+    ck.control(gemm_bad(torch.zeros_like(got), ref, m) > 0, "zeroed transform")
+    fro = step("frobenius", lambda: frobenius(x))
+    fro64 = float(torch.trace(g64).sqrt())
+    frel = abs(fro - fro64) / fro64
+    ck(frel <= 1e-5, f"frobenius rel err {frel:.3e}, limit 1e-5")
+    ck.control(abs(fro * (1 - 1e-4) - fro64) / fro64 > 1e-5, "frobenius off by 1e-4")
+    print(f"[10] PCA transform on {EST_SAMPLE} rows within the GEMM limit of float64 "
+          f"(zeroed fails); frobenius(X) rel err {frel:.3e} (limit 1e-5)", flush=True)
+    del proj, pca_est, ref, got
+
+    # 2. TSQR
+    q, r = step("tsqr", lambda: tsqr(x))
+    r64 = r.double()
+    lim = TSQR_ERRS * m * eps
+
+    def tsqr_errors(qq):
+        res, qtq = 0.0, torch.zeros((m, m), dtype=torch.float64, device="cuda")
+        for lo in range(0, n, SAMPLE_ROWS):
+            c = qq[lo:lo + SAMPLE_ROWS].double()
+            res += float(((c @ r64 - data[lo:lo + SAMPLE_ROWS].double()) ** 2).sum())
+            qtq += c.T @ c
+        eye = torch.eye(m, dtype=torch.float64, device="cuda")
+        return (res / float(torch.trace(g64))) ** 0.5, float((qtq - eye).abs().max())
+
+    rel_qr, orth = tsqr_errors(q)
+    ck(rel_qr <= lim and orth <= lim,
+       f"tsqr: ‖QR − X‖/‖X‖ {rel_qr:.3e}, ‖QᵀQ − I‖max {orth:.3e}, limit {lim:.3e}")
+    q[:, 0] = 0
+    c_rel, c_orth = tsqr_errors(q)
+    ck.control(c_rel > lim and c_orth > lim, "Q with a zeroed column")
+    print(f"[10] tsqr {n}x{m}: ‖QR − X‖/‖X‖ {rel_qr:.3e}, ‖QᵀQ − I‖max {orth:.3e} "
+          f"(limit {TSQR_ERRS}·m·eps32 = {lim:.3e}); a zeroed column of Q fails "
+          f"({c_rel:.3e}, {c_orth:.3e})", flush=True)
+    del q, r
+
+    # 3. LinearRegression (auto: must pick normal), tsqr, Ridge
+    a64 = torch.zeros((m + 1, m + 1), dtype=torch.float64, device="cuda")
+    a64[:m, :m], a64[:m, m], a64[m, :m], a64[m, m] = g64, cs64, cs64, n
+    b64 = torch.cat([xty64, torch.tensor([ysum], dtype=torch.float64, device="cuda")])
+    yd = y.double()
+    ss_tot = float(((yd - yd.mean()) ** 2).sum())
+    lin = {}
+    for name, make, alpha in (("linreg", lambda: LinearRegression(), 0.0),
+                              ("linreg_tsqr", lambda: LinearRegression(solver="tsqr"), 0.0),
+                              ("ridge", lambda: Ridge(alpha=RIDGE_ALPHA), RIDGE_ALPHA)):
+        est = step(f"{name}_fit", lambda: make().fit(x, y))
+        pred = step(f"{name}_predict", lambda: est.predict(x))
+        score = step(f"{name}_score", lambda: est.score(x, y))
+        reg = alpha * torch.eye(m + 1, dtype=torch.float64, device="cuda")
+        reg[m, m] = 0
+        a = a64 + reg
+        theta64 = torch.linalg.solve(a, b64)
+
+        def backward(coef, icpt):
+            th = torch.cat([torch.as_tensor(coef, dtype=torch.float64, device="cuda"),
+                            torch.tensor([icpt], dtype=torch.float64, device="cuda")])
+            return float((a @ th - b64).abs().max()
+                         / (a.abs().max() * th.abs().max() + b64.abs().max()))
+
+        bw = backward(est.coef_, est.intercept_)
+        fw = float((torch.as_tensor(est.coef_, device="cuda") - theta64[:m]).abs().max()
+                   / theta64[:m].abs().max())
+        cond = float(torch.linalg.cond(a))
+        lim = LIN_ERRS * eps
+        ck(bw <= lim, f"{name}: normal-equation backward error {bw:.3e}, limit {lim:.3e}")
+        zeroed = np.array(est.coef_, copy=True)
+        zeroed[int(np.abs(zeroed).argmax())] = 0
+        ck.control(backward(zeroed, est.intercept_) > lim, f"{name}: zeroed coefficient")
+        w32 = torch.as_tensor(np.asarray(est.coef_, np.float32), device="cuda").double()
+        ref = data[idx].double() @ w32 + est.intercept_
+        got = pred.collect().reshape(-1)[idx]
+        ck(gemm_bad(got, ref, m) == 0, f"{name}: predict is not X @ coef_ + intercept_")
+        w0 = w32.clone()
+        w0[int(w0.abs().argmax())] = 0
+        ck.control(gemm_bad(got, data[idx].double() @ w0 + est.intercept_, m) > 0,
+                   f"{name}: predict against a zeroed coefficient")
+        r2_64 = 1 - float(((yd - (data.double() @ theta64[:m] + theta64[m])) ** 2).sum()) \
+            / ss_tot
+        lin[name] = {"solver_used": est.solver_used_, "backward_err": bw,
+                     "coef_rel_err": fw, "cond": cond, "r2": score, "r2_64": r2_64}
+        print(f"[10] {name}: solver_used_ {est.solver_used_!r}; coefficients: backward "
+              f"error {bw:.3e} of the float64 normal equations (limit {lim:.3e}; a "
+              f"zeroed coefficient fails), forward rel err {fw:.3e} (cond {cond:.1f}); "
+              f"predict on {EST_SAMPLE} rows equals X @ coef_ + intercept_ within the GEMM "
+              f"limit; R² {score:.9f} (the float64 solution's {r2_64:.9f})", flush=True)
+        del est, pred
+    ck(lin["linreg"]["solver_used"] == "normal",
+       f"LinearRegression() chose {lin['linreg']['solver_used']!r} on a well-conditioned X")
+
+    # 4. RandomForestClassifier (the reference's defaults) on the blob ids
+    forest = step("forest_fit", lambda: RandomForestClassifier().fit(x, truth))
+    fpred = step("forest_predict", lambda: forest.predict(x))
+    acc = float((fpred.collect().reshape(-1) == truth).double().mean())
+    sl = FOREST_SLICE
+    f_card = RandomForestClassifier().fit(x[:sl], truth[:sl])
+    t0 = time.perf_counter()
+    f_cpu = RandomForestClassifier().fit(
+        rt.from_array(data[:sl].cpu(), X_BLOCK, device="cpu"), truth[:sl].cpu())
+    cpu_s = time.perf_counter() - t0
+    names = ("edges_", "feat_", "bin_", "leaf_class_")
+    for name in names:
+        ck(np.array_equal(getattr(f_card, name), getattr(f_cpu, name)),
+           f"forest: {name} differs between the card and the CPU")
+    moved = f_cpu.bin_.copy()
+    moved[0, 0] += 1
+    ck.control(not np.array_equal(f_card.bin_, moved), "forest: one split bin moved")
+
+    def walk(est, rows, leaf):
+        codes = (rows[:, :, None] > est.edges_[None]).sum(-1)
+        out = []
+        for row in codes:
+            votes = np.zeros(len(est.classes_), np.int64)
+            for t in range(est.n_estimators):
+                nd = 0
+                for d in range(est.max_depth):
+                    i = (1 << d) - 1 + nd
+                    nd = 2 * nd + int(row[est.feat_[t, i]] > est.bin_[t, i])
+                votes[leaf[t, nd]] += 1
+            out.append(est.classes_[int(votes.argmax())])
+        return np.asarray(out)
+
+    widx = idx[:WALK_ROWS]
+    wrows = data[widx].cpu().numpy()
+    got = fpred.collect().reshape(-1)[widx].cpu().numpy()
+    ck(np.array_equal(walk(forest, wrows, forest.leaf_class_), got),
+       "forest: predict differs from a Python walk of the fitted trees")
+    shifted = (forest.leaf_class_ + 1) % len(forest.classes_)
+    ck.control(not np.array_equal(walk(forest, wrows, shifted), got),
+               "forest: leaf classes shifted by one")
+    print(f"[10] forest (8 trees, depth 6, 16 bins) on the {N_CLUSTERS} blob ids: "
+          f"training accuracy {acc:.4f}; fitted on the first {sl} rows on the card "
+          f"and on the CPU ({cpu_s:.2f} s): {', '.join(names)} equal (a moved bin "
+          f"fails); predict on {WALK_ROWS} rows equals a Python walk of the trees "
+          f"(shifted leaf classes fail)", flush=True)
+    del fpred, forest, f_card, f_cpu
+
+    # 5. CascadeSVM (RBF, gamma="scale") on X's first block row in 64 chunks
+    xc = x[:CSVM_ROWS].rechunk(CSVM_BLOCK)
+    yc = (truth[:CSVM_ROWS] < N_CLUSTERS // 2).to(torch.int32)
+    plan.clear_cache()
+    svm = step("csvm_fit", lambda: CascadeSVM(
+        kernel="rbf", gamma="scale", sv_cap=CSVM_CAP, max_iter=CSVM_ITERS).fit(xc, yc))
+    st = plan.cache_stats()
+    ck(st["opt_runs"] == 1 and st["misses"] == 1 and st["hits"] == svm.n_iter_ - 1,
+       f"CSVM plan counters {st} over {svm.n_iter_} iterations")
+    dec = step("csvm_decision", lambda: svm.decision_function(xc))
+    sacc = step("csvm_score", lambda: svm.score(xc, yc))
+    xs64 = data[cidx].double()
+    sv64 = svm.sv_.double()
+    coef64 = (svm.dual_coef_ * svm.sv_y_).double()
+    d2 = torch.cdist(xs64, sv64) ** 2
+    k64 = torch.exp(-svm.gamma_ * d2)
+    dec64 = k64 @ coef64 + svm.intercept_
+    got = dec.collect().reshape(-1)[cidx].double()
+    lim = 16 * eps * (svm.gamma_ * (((xs64 ** 2).sum(1)[:, None] + (sv64 ** 2).sum(1)[None])
+                                    * k64 * coef64.abs()).sum(1)
+                      + (k64 * coef64.abs()).sum(1) + abs(svm.intercept_))
+    derr = float((got - dec64).abs().max())
+    ck(bool(((got - dec64).abs() <= lim).all()),
+       f"CSVM decision: max abs err {derr:.3e}, limit up to {float(lim.max()):.3e}")
+    rot = k64 @ coef64.roll(1) + svm.intercept_
+    ck.control(bool(((got - rot).abs() > lim).any()), "CSVM dual coefficients rotated")
+    print(f"[10] CascadeSVM rbf on {CSVM_ROWS}x{m} in {CSVM_ROWS // CSVM_BLOCK[0]} chunks: "
+          f"n_iter {svm.n_iter_}, n_sv {svm.n_sv_}, gamma {svm.gamma_:.4e}, accuracy "
+          f"{sacc:.4f}; plan counters {st}; decision on {cidx.numel()} rows vs float64 "
+          f"from sv_/dual_coef_/intercept_: max abs err {derr:.3e} (per-row limit "
+          f"<= {float(lim.max()):.3e}; rotated dual coefficients fail)", flush=True)
+    del svm, dec, xc, x, data, truth, y, g64
+
+    # 6. ALS and sparse PCA on the Netflix Prize ratings
+    R, csr, trip = sparse
+    rows, cols, vals = trip
+    nu, nm = R.shape
+    crow = torch.zeros(nu + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nu), 0)
+    r64 = torch.sparse_csr_tensor(crow, cols, vals, size=(nu, nm))
+    order = torch.argsort(cols * nu + rows)
+    ccol = torch.zeros(nm + 1, dtype=torch.int64, device="cuda")
+    ccol[1:] = torch.cumsum(torch.bincount(cols, minlength=nm), 0)
+    rt64 = torch.sparse_csr_tensor(ccol, rows[order], vals[order], size=(nm, nu))
+    del order
+    row_depth = int(np.diff(csr.indptr).max())
+    col_depth = int(torch.bincount(cols, minlength=nm).max())
+    f = ALS_FACTORS
+    last = {}
+    real_step = ALS._step
+
+    def recorded_step(self, r_, rt_, u_, v_):
+        last["v"] = v_
+        return real_step(self, r_, rt_, u_, v_)
+
+    with never_densified(), patched(ALS, "_step", recorded_step):
+        als = step("als_fit", lambda: ALS(n_factors=f, reg=ALS_REG, max_iter=ALS_ITERS,
+                                           check_convergence=False).fit(R))
+        v_prev = last["v"]
+        again = step("als_fit_again", lambda: ALS(
+            n_factors=f, reg=ALS_REG, max_iter=ALS_ITERS, check_convergence=False).fit(R))
+    same = torch.equal(als.u_.blocks, again.u_.blocks) and torch.equal(
+        als.v_.blocks, again.v_.blocks)
+    ck(same, "ALS: two fits with the same seed gave other bits")
+    del again
+    eye = torch.eye(f, dtype=torch.float64, device="cuda")
+
+    def half_step(r, factor, depth, what, out):
+        fac = factor.collect().double()
+        gm = fac.T @ fac + ALS_REG * eye
+        ref = torch.sparse.mm(r, fac) @ torch.linalg.inv(gm)
+        got = out.collect().double()
+        cond = float(torch.linalg.cond(gm))
+        scale = float(ref.abs().max())
+        lim = ALS_ERRS * eps * (depth ** 0.5 + cond) * scale
+        err = float((got - ref).abs().max())
+        ck(err <= lim, f"ALS {what}: max abs err {err:.3e}, limit {lim:.3e}")
+        zeroed = got.clone()
+        zeroed[:, 0] = 0
+        ck.control(float((zeroed - ref).abs().max()) > lim, f"ALS {what}: zeroed factor")
+        return {"max_abs_err": err, "limit": lim, "cond": cond, "scale": scale}
+
+    als_u = half_step(r64, v_prev, row_depth, "U = R V (VᵀV + λI)⁻¹", als.u_)
+    als_v = half_step(rt64, als.u_, col_depth, "V = Rᵀ U (UᵀU + λI)⁻¹", als.v_)
+    bn = NETFLIX_BLOCK[0]
+    sub = ALS(n_factors=f, reg=ALS_REG)
+    sub.u_, sub.v_ = als.u_[:bn], als.v_
+    score = step("als_score", lambda: sub.score(R[:bn]))
+    u64, v64 = sub.u_.collect().double(), als.v_.collect().double()
+    k = int((rows < bn).sum())
+    pr = (u64[rows[:k]] * v64[cols[:k]]).sum(1)
+    sse = float(torch.trace((u64.T @ u64) @ (v64.T @ v64))) \
+        - 2 * float((pr * vals[:k]).sum()) + float((vals[:k] ** 2).sum())
+    rmse64 = (sse / (bn * nm)) ** 0.5
+    zero_rmse = (float((vals[:k] ** 2).sum()) / (bn * nm)) ** 0.5
+    srel = abs(-score - rmse64) / rmse64
+    ck(srel <= VAR_RTOL, f"ALS score {score} vs float64 -{rmse64} (rel {srel:.3e})")
+    ck.control(abs(zero_rmse - rmse64) / rmse64 > VAR_RTOL, "ALS score of a zero model")
+    print(f"[10] ALS(f={f}, reg={ALS_REG}, {ALS_ITERS} iterations) on R: the last "
+          f"half-steps against float64: U {json.dumps(als_u)}, V {json.dumps(als_v)} "
+          f"(limit {ALS_ERRS}·eps32·(√depth + cond)·scale; a zeroed factor column "
+          f"fails); two fits, same bits: {same}; score on R[:{bn}] {score:.9f} "
+          f"(float64 {-rmse64:.9f}, rel {srel:.2e}; a zero model's {-zero_rmse:.6f})",
+          flush=True)
+    del als, sub, v_prev
+
+    with never_densified():
+        sp = step("sparse_pca_fit", lambda: PCA(n_components=SPARSE_PCA_K,
+                                                 center=False).fit(R))
+        sproj = step("sparse_pca_transform", lambda: sp.transform(R))
+    sq64 = power64(torch, lambda q: torch.sparse.mm(rt64, torch.sparse.mm(r64, q)),
+                   plin._initial_q(nm, SPARSE_PCA_K, 0, "cuda"), PCA_ITERS_DEFAULT)
+
+    def sparse_rq(c):
+        p = torch.sparse.mm(r64, c.T.contiguous())
+        return (p * p).sum(0) / (nu - 1)
+
+    srq = sparse_rq(sq64.T)
+    pca_checks(torch, ck, f"PCA({SPARSE_PCA_K}, center=False) on R", sp.components_,
+               sp.explained_variance_, sq64, sparse_rq, float(srq.max() / srq.min()),
+               PCA_ITERS_DEFAULT)
+    ref = torch.sparse.mm(r64, sp.components_.double().T.contiguous())
+    got = sproj.collect()
+    ck(gemm_bad(got, ref, row_depth) == 0, "sparse PCA transform beyond the limit")
+    ck.control(gemm_bad(torch.zeros_like(got), ref, row_depth) > 0,
+               "zeroed sparse transform")
+    print(f"[10] sparse PCA transform ({nu}x{SPARSE_PCA_K}) within the GEMM limit of "
+          f"float64 (depth {row_depth}; zeroed fails); R never densified", flush=True)
+    del sp, sproj, r64, rt64, ref, got
+
+    launches = ds_counts()
+    total = {k: sum(v.get(k, 0) for v in rec["launches"].values()) for k in launches}
+    want = {"pca_fit": 2 * PCA_ITERS_DEFAULT + 1, "pca_transform": 1,
+            "linreg_fit": 2, "ridge_fit": 2, "linreg_tsqr_fit": 0, "tsqr": 0,
+            "linreg_predict": 1, "ridge_predict": 1, "linreg_tsqr_predict": 1,
+            "als_fit": 2 * ALS_ITERS, "sparse_pca_fit": 0, "forest_fit": 0}
+    for name, nl in want.items():
+        got_n = rec["launches"][name].get("stacked_matmul", 0)
+        ck(got_n == nl, f"{name}: {got_n} stacked_matmul launches, the path implies {nl}")
+    ck(rec["launches"]["csvm_fit"].get("stacked_matmul", 0) >= 1,
+       "the CSVM's kernel block launched no stacked_matmul")
+    plain = registry.snapshot("gemm")["gemm.dispatch_plain"] - plain0
+    ck(plain == 0, f"{plain} GEMMs took the plain version on the card")
+    ck(total["kmeans_assign"] == 0, f"kmeans_assign launched {total['kmeans_assign']}")
+    rec["wall_s"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"[10] card: {smi}; estimators phase: {json.dumps(rec)}; stacked_matmul "
+          f"launches by route {json.dumps(total)}; plain GEMMs {plain}", flush=True)
+    ck.raise_any()
+    return total
+
 
 
 def main(argv=None) -> int:
@@ -2459,10 +2966,13 @@ def main(argv=None) -> int:
     del hx, hkm
     gc.collect()
     torch.cuda.empty_cache()
-    sparse_launches, sparse_rows = phase_sparse(torch, gen, smi)
+    sparse_launches, sparse_rows, sparse = phase_sparse(torch, gen, smi)
+    est_launches = phase_estimators(torch, args.seed, smi, sparse)
+    del sparse
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
-        gemm["launches_by_path"]["sparse"] = sparse_launches[f"stacked_matmul/{route}"]
-        gemm["launches"] += sparse_launches[f"stacked_matmul/{route}"]
+        for path, counts in (("sparse", sparse_launches), ("estimators", est_launches)):
+            gemm["launches_by_path"][path] = counts[f"stacked_matmul/{route}"]
+            gemm["launches"] += counts[f"stacked_matmul/{route}"]
     print(f"[9] sparse ops (torch ops, no TPU kernel): "
           f"{json.dumps({'card': smi, 'ops': sparse_rows})}", flush=True)
     print(f"[8] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "

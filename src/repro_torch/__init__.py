@@ -8,12 +8,19 @@ CUDA kernels for Hopper (``repro_torch/csrc``).  Creation routines take
 ``device=`` (default ``"cuda"``); everything downstream runs on the device
 of its inputs.  ``repro_torch.lazy()`` (or ``DsArray.lazy()``) records ops
 as a plan that ``compute()`` optimizes and runs (``core.expr``,
-``core.plan``).
+``core.plan``).  The dislib estimators: ``estimators`` (CascadeSVM, the
+linear models, the random forest) and ``algorithms`` (KMeans, ALS, PCA,
+TSQR, the Dataset baseline's K-means and ALS).
 """
 
 from repro_torch import core
 from repro_torch.core import *  # noqa: F401,F403
+from repro_torch import algorithms, estimators
+from repro_torch.algorithms import *  # noqa: F401,F403
+from repro_torch.estimators import *  # noqa: F401,F403
 
 __version__ = "0.1.0"
 
-__all__ = ["core", "__version__"] + list(core.__all__)
+__all__ = (["core", "algorithms", "estimators", "__version__"]
+           + list(core.__all__) + list(algorithms.__all__)
+           + list(estimators.__all__))

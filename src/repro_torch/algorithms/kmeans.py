@@ -1,4 +1,5 @@
-"""K-means on ds-arrays (paper §5.5), the port of ``repro.algorithms.kmeans``.
+"""K-means on ds-arrays (paper §5.5), the port of ``repro.algorithms.kmeans``,
+and the Dataset baseline's K-means (``kmeans_dataset``, host NumPy).
 
 The Lloyd assignment step (distances -> argmin -> per-cluster sums and
 counts) is one launch of the fused CUDA kernel ``kmeans_assign`` on the
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dataset_baseline import Dataset
 from repro_torch.core.dsarray import DsArray, from_array
 from repro_torch.estimators.base import BaseEstimator, _iter_span
 from repro_torch.kernels.kmeans.ops import kmeans_assign_stacked
@@ -154,6 +156,10 @@ class KMeans(BaseEstimator):
 
     def fit(self, x: DsArray, y=None) -> "KMeans":
         del y                     # unsupervised; kept for the fit(x, y) shape
+        with self._driver_scope():
+            return self._fit(x)
+
+    def _fit(self, x: DsArray) -> "KMeans":
         x = self._validate_x(x).ensure_zero_pad()  # contractions read raw blocks
         n, m = x.shape
         row_valid = self._row_valid(x)
@@ -191,6 +197,10 @@ class KMeans(BaseEstimator):
     def predict(self, x: DsArray) -> DsArray:
         """Labels as a new (n, 1) ds-array (predict never mutates its input)."""
         self._check_fitted("centers_")
+        with self._driver_scope():
+            return self._predict(x)
+
+    def _predict(self, x: DsArray) -> DsArray:
         x = self._validate_x(x).ensure_zero_pad()
         if x.is_sparse:
             labels, _, _ = _sparse_center_stats(
@@ -206,6 +216,10 @@ class KMeans(BaseEstimator):
         """Negative inertia (sum of squared distances to the nearest center)."""
         del y
         self._check_fitted("centers_")
+        with self._driver_scope():
+            return self._score(x)
+
+    def _score(self, x: DsArray) -> float:
         x = self._validate_x(x).ensure_zero_pad()
         centers = self._padded_centers(x)
         dots = _dots(x, centers)
@@ -213,3 +227,50 @@ class KMeans(BaseEstimator):
         dist = _row_sq_norms(x)[..., None] - 2 * dots + c_sq[None, None, :]
         best = dist.min(dim=-1).values * self._row_valid(x)
         return float(-best.sum())
+
+
+# ---------------------------------------------------------------------------
+# Dataset-baseline K-means (paper Fig. 9 parity experiment): host NumPy, as
+# the reference's
+# ---------------------------------------------------------------------------
+
+
+def _kmeanspp_init(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarray:
+    """k-means++ seeding (Arthur & Vassilvitskii) — D² sampling."""
+    n = x.shape[0]
+    centers = [x[rng.integers(n)]]
+    d2 = ((x - centers[0]) ** 2).sum(-1)
+    for _ in range(1, k):
+        tot = d2.sum()
+        # degenerate data (every remaining point coincides with a center):
+        # D² sampling is undefined, fall back to uniform
+        p = d2 / tot if tot > 0 else np.full(n, 1.0 / n)
+        centers.append(x[rng.choice(n, p=p)])
+        d2 = np.minimum(d2, ((x - centers[-1]) ** 2).sum(-1))
+    return np.stack(centers).astype(x.dtype)
+
+
+def kmeans_dataset(ds: Dataset, n_clusters: int, max_iter: int = 20,
+                   tol: float = 1e-4, seed: int = 0) -> np.ndarray:
+    """K-means with the Dataset task structure: one partial-sum task per
+    Subset + a binary reduction tree per iteration (paper Fig. 3)."""
+    rng = np.random.default_rng(seed)
+    all_rows = ds.collect()
+    centers = _kmeanspp_init(all_rows, n_clusters, rng)
+    for _ in range(max_iter):
+        def partial(x, centers=centers):
+            d = ((x[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+            lab = d.argmin(1)
+            oh = np.eye(n_clusters, dtype=x.dtype)[lab]
+            return np.concatenate([oh.T @ x, oh.sum(0)[:, None]], axis=1)
+
+        partials = ds.map_subsets(partial)
+        tot = ds.reduce(partials, np.add)
+        sums, counts = tot[:, :-1], tot[:, -1]
+        new = np.where(counts[:, None] > 0, sums / np.maximum(counts, 1)[:, None],
+                       centers)
+        shift = float(np.sqrt(((new - centers) ** 2).sum()))
+        centers = new
+        if shift < tol:
+            break
+    return centers

@@ -586,3 +586,131 @@ def test_sparse_lloyd_step_on_the_card(card, never_densified):
                   int(onehot.sum(0).max()))
     assert float(sums[:, 4_000:].abs().max()) == 0.0
     np.testing.assert_array_equal(counts.cpu().numpy(), onehot.sum(0))
+
+
+# ---------------------------------------------------------------------------
+# The estimators: each fitted on the card and on the CPU, in the port
+# ---------------------------------------------------------------------------
+
+
+def _on(x, block, device):
+    import repro_torch as pt
+    return pt.from_array(x, block, device=device)
+
+
+def _host(a):
+    from repro_torch.core import DsArray
+    if isinstance(a, DsArray):
+        a = a.collect()
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _est_data(seed, n=600, m=12):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(4, m)) * 4
+    lab = rng.integers(0, 4, n)
+    x = (centers[lab] + rng.normal(size=(n, m))).astype(np.float32)
+    y = (x @ rng.normal(size=m) + 0.3 + 0.05 * rng.normal(size=n)).astype(np.float32)
+    return x, y, lab.astype(np.int32)
+
+
+@pytest.mark.parametrize("solver,alpha", [("auto", 0.0), ("tsqr", 0.0), ("auto", 1.0)])
+def test_linear_on_the_card(card, solver, alpha):
+    """Coefficients within rtol = atol = 1e-4 of the CPU fit; the products
+    launch ``stacked_matmul`` and never take the plain version."""
+    from repro_torch.estimators import LinearRegression
+    from repro_torch.obs import registry
+    x, y, _ = _est_data(1)
+    before, plain = mk.stacked_matmul.launches, registry.snapshot("gemm")["gemm.dispatch_plain"]
+    gpu = LinearRegression(alpha=alpha, solver=solver).fit(_on(x, (128, 12), card), y)
+    pred = gpu.predict(_on(x, (128, 12), card))
+    assert mk.stacked_matmul.launches > before
+    assert registry.snapshot("gemm")["gemm.dispatch_plain"] == plain
+    cpu = LinearRegression(alpha=alpha, solver=solver).fit(_on(x, (128, 12), "cpu"), y)
+    assert gpu.solver_used_ == cpu.solver_used_
+    np.testing.assert_allclose(gpu.coef_, cpu.coef_, rtol=1e-4, atol=1e-4)
+    assert gpu.intercept_ == pytest.approx(cpu.intercept_, rel=1e-4, abs=1e-4)
+    np.testing.assert_allclose(_host(pred).ravel(), x @ gpu.coef_ + gpu.intercept_,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_forest_on_the_card(card):
+    """The same trees on the card as on the CPU, and the same predictions."""
+    from repro_torch.estimators import RandomForestClassifier
+    x, _, lab = _est_data(2)
+    gpu = RandomForestClassifier(n_estimators=4, max_depth=5).fit(_on(x, (100, 12), card), lab)
+    cpu = RandomForestClassifier(n_estimators=4, max_depth=5).fit(_on(x, (100, 12), "cpu"), lab)
+    for name in ("edges_", "feat_", "bin_", "leaf_class_"):
+        np.testing.assert_array_equal(getattr(gpu, name), getattr(cpu, name))
+    np.testing.assert_array_equal(_host(gpu.predict(_on(x, (100, 12), card))),
+                                  _host(cpu.predict(_on(x, (100, 12), "cpu"))))
+
+
+def test_pca_and_tsqr_on_the_card(card, monkeypatch):
+    """PCA from one starting draw: components up to sign and variances at
+    1e-4 of the CPU fit; TSQR's Q·R and QᵀQ within 1e-4."""
+    from repro_torch.algorithms import PCA, linalg, tsqr
+    x, _, _ = _est_data(3)
+    q0 = np.random.default_rng(0).normal(size=(12, 3)).astype(np.float32)
+    monkeypatch.setattr(linalg, "_initial_q",
+                        lambda m, k, seed, device: torch.as_tensor(q0, device=device))
+    gpu = PCA(n_components=3).fit(_on(x, (128, 12), card))
+    cpu = PCA(n_components=3).fit(_on(x, (128, 12), "cpu"))
+    g, c = _host(gpu.components_), _host(cpu.components_)
+    signs = np.sign((g * c).sum(1, keepdims=True))
+    np.testing.assert_allclose(g * signs, c, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_host(gpu.explained_variance_),
+                               _host(cpu.explained_variance_), rtol=1e-4)
+    q, r = tsqr(_on(x, (128, 12), card))
+    q64, r64 = q.double(), r.double()
+    assert float((q64 @ r64 - torch.as_tensor(x, device=card).double()).abs().max()) < 1e-4
+    assert float((q64.T @ q64 - torch.eye(12, device=card, dtype=torch.float64)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_als_on_the_card(card, monkeypatch, sparse):
+    """ALS from one starting U and V: U and V after 3 iterations within
+    rtol 1e-3 (of their scale) of the CPU fit."""
+    import repro_torch as pt
+    from repro_torch.algorithms import ALS, als
+    rng = np.random.default_rng(4)
+    r = (rng.normal(size=(300, 4)) @ rng.normal(size=(4, 200))).astype(np.float32)
+    if sparse:
+        r = (r * (rng.random(r.shape) < 0.3)).astype(np.float32)
+    u0 = rng.random((300, 4)).astype(np.float32)
+    v0 = rng.random((200, 4)).astype(np.float32)
+    monkeypatch.setattr(als, "random_array",
+                        lambda gen, shape, block_shape, device="cuda", **kw:
+                        pt.from_array(u0 if shape[0] == 300 else v0, block_shape,
+                                      device=device))
+    fits = []
+    for dev in (card, "cpu"):
+        rd = _on(r, (64, 64), dev)
+        fits.append(ALS(n_factors=4, max_iter=3, check_convergence=False)
+                    .fit(rd.tosparse() if sparse else rd))
+    for name in ("u_", "v_"):
+        g, c = _host(getattr(fits[0], name)), _host(getattr(fits[1], name))
+        np.testing.assert_allclose(g, c, rtol=1e-3, atol=1e-3 * np.abs(c).max())
+
+
+@pytest.mark.parametrize("kernel,sparse", [("linear", False), ("rbf", False),
+                                           ("rbf", True)])
+def test_csvm_on_the_card(card, kernel, sparse):
+    """Predictions equal the CPU fit's except where |decision| < 1e-4, and
+    ``dual_coef_`` within 1e-3."""
+    from repro_torch.estimators import CascadeSVM
+    x, _, lab = _est_data(5, n=400)
+    if sparse:
+        x = np.where(np.abs(x) < 2.0, 0.0, x).astype(np.float32)
+    y = (lab < 2).astype(np.int32)
+    fits, decs = [], []
+    for dev in (card, "cpu"):
+        xd = _on(x, (50, 12), dev)
+        xd = xd.tosparse() if sparse else xd
+        est = CascadeSVM(kernel=kernel, sv_cap=48, max_iter=3).fit(xd, y)
+        fits.append(_host(est.predict(xd)).ravel())
+        decs.append(_host(est.decision_function(xd)).ravel())
+        fits.append(_host(est.dual_coef_))
+    firm = np.abs(decs[1]) >= 1e-4
+    np.testing.assert_array_equal(fits[0][firm], fits[2][firm])
+    np.testing.assert_allclose(fits[1], fits[3], atol=1e-3)

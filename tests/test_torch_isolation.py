@@ -53,6 +53,22 @@ KMeans(n_clusters=2, max_iter=5).fit(r).score(r)
 pt.compute_multi((r.lazy() * r).sum(axis=1), r.lazy().T @ x,
                  (r * 2.0 + r).lazy().todense())
 repro_torch.core.sparse.canonicalize(r + r)
+import repro_torch.estimators
+import repro_torch.algorithms.linalg
+import repro_torch.algorithms.als
+import repro_torch.core.dataset_baseline
+from repro_torch.algorithms import ALS, PCA
+from repro_torch.estimators import CascadeSVM, RandomForestClassifier, Ridge
+rng = np.random.default_rng(1)
+xs = rng.normal(size=(48, 4)).astype(np.float32)
+xd = pt.from_array(xs, (16, 4), device="cpu")
+labels = (xs[:, 0] > 0).astype(np.int32)
+PCA(n_components=2, n_iter=5).fit(xd).transform(xd)
+Ridge(alpha=0.5).fit(xd, xs[:, 1]).predict(xd)
+ALS(n_factors=2, max_iter=2).fit(pt.from_array(np.abs(xs) @ np.abs(xs).T,
+                                               (16, 16), device="cpu"))
+CascadeSVM(sv_cap=8, max_iter=2, solver_iters=20).fit(xd, labels).predict(xd)
+RandomForestClassifier(n_estimators=2, max_depth=3).fit(xd, labels).predict(xd)
 repro_torch.launch.serve.main(["--smoke", "--device", "cpu", "--batch", "1",
                                "--prompt-len", "3", "--gen", "2"])
 loaded = sorted(m for m in sys.modules
@@ -80,14 +96,20 @@ def test_sources_have_no_jax_or_reference_imports():
 
 
 def test_default_device_is_cuda_and_never_falls_back():
-    """Without ``device=`` the creation routines ask for the card; where
-    there is none they raise instead of landing on the CPU."""
+    """Without ``device=`` the creation routines, and an estimator's fit of
+    a raw array, ask for the card; where there is none they raise instead
+    of landing on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     arr = np.ones((4, 4), np.float32)
     for make in (lambda: pt.from_array(arr, (2, 2)),
                  lambda: pt.zeros((4, 4), (2, 2)),
                  lambda: pt.full((4, 4), (2, 2), 1.0),
-                 lambda: pt.eye(4, (2, 2))):
+                 lambda: pt.eye(4, (2, 2)),
+                 lambda: pt.Ridge().fit(arr, np.ones(4)),
+                 lambda: pt.PCA().fit(arr),
+                 lambda: pt.KMeans(n_clusters=2).fit(arr),
+                 lambda: pt.RandomForestClassifier().fit(arr, [0, 1, 0, 1]),
+                 lambda: pt.CascadeSVM().fit(arr, [0, 1, 0, 1])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
