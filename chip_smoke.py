@@ -157,6 +157,44 @@ raises and the script exits non-zero):
     ``intercept_``; both ALS half-steps; each with a wrong answer that must
     fail.  The PCA and CSVM plans are optimised once; no GEMM takes the
     plain version.
+11. the durable path (at most 60 s), on phase 4's and phase 10's arrays and
+    fitted estimators, each step's launch counts zeroed before and read
+    after, in a scratch directory whose free space is checked first:
+    ingestion — X written with ``np.save`` and read back by
+    ``load_npy_rows`` (its bits; host tracemalloc peak at most 3 block rows;
+    GB/s and the added device peak, X twice while the block rows stack),
+    an ``io_load`` fault at block row 3 (``IOLoadError``,
+    ``memory_allocated`` back to its value), X's first 262,144 + 4,096 rows
+    as ``%.4e`` text (``np.savetxt``'s bytes, the digits formed on the card)
+    through ``load_txt_file`` (the bits of ``from_array(np.loadtxt)``), R's
+    first 33,768 users as 1-based svmlight through ``load_svmlight_file``
+    (``from_scipy``'s stacked COO, invariants) and all of R as an
+    uncompressed ``.npz`` through ``load_npz_sparse`` (R's stacked COO);
+    model files — ``save_model`` / ``load_model(device="cuda")`` of
+    ``KMeans(64)``, ``PCA(8)``, the linear models, the forest, the CSVM,
+    ``ALS(16)`` and sparse ``PCA(16)``, each save, load and output (fitted
+    and loaded) a step of its own, each output bit-equal to the fitted
+    object's, the loaded ``KMeans``' assigns all on the mma route, every
+    leaf from the card 32-bit (host NumPy leaves keep the reference's
+    dtypes); crash and resume — ``KMeans(64)`` on X's first
+    2,097,152 rows (cut from 8 M: three k-means++ inits fit the budget;
+    tol=0, max_iter=6 if it converges in < 3 iterations), with
+    ``checkpoint_dir``, crashed halfway and resumed to the plain fit's
+    ``n_iter_`` and center bits, every assign on the mma route; phase
+    10's ``ALS(16)`` crashed at iteration 5 and its CSVM at iteration 2,
+    both resumed to phase 10's bits; guarded execution on phase 4's 8192²
+    f32 ``A @ B``:
+    ``run_resilient`` clean (only ``executions`` counted, ``compute()``'s
+    bits and launches, its added time from timed runs that are steps too),
+    one transient (one retry), ``oom`` on the fused and eager rungs (two
+    degradations; the einsum rung launches ``compute()``'s ``stacked_matmul``
+    calls, within the GEMM limit of the kernel's, and runs Xᵀ X on the
+    2,097,152 rows with its split-K workspace within the 4 MiB low-memory
+    cap where the fused run's passes it, both within the GEMM limit of
+    float64; no GEMM on the card takes the plain version), a real ``torch.cuda.OutOfMemoryError`` classified
+    ``oom`` with the next allocation fine, NaN poisoned into block (1, 2)
+    under ``guard="finite"`` (``NumericalDivergence`` naming it), and the
+    clean result's ``finite_report``.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -168,6 +206,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import io
 import json
 import os
 import statistics
@@ -2472,11 +2511,13 @@ class Checks:
         check(not self.failed, "; ".join(self.failed))
 
 
-def est_step(torch, rec, name, fn):
+def est_step(torch, rec, name, fn, collect: bool = True):
     """``fn()`` with its CUDA-synchronised wall seconds, ``stacked_matmul``
-    launches by route and added peak device memory kept in ``rec``."""
+    launches by route and added peak device memory kept in ``rec``; with
+    ``collect``, garbage is collected first."""
     before = ds_counts()
-    gc.collect()
+    if collect:
+        gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2547,7 +2588,8 @@ def pca_checks(torch, ck, what, comps, var, q64, rayleigh, lam_ratio, iters):
 def phase_estimators(torch, seed, smi, sparse):
     """Phase 10: every estimator through its entry points, dense at phase
     4's shape and sparse at phase 9's; returns the ``stacked_matmul``
-    launches of the estimator calls by route."""
+    launches of the estimator calls by route, and the fitted estimators
+    with X and the CSVM's cut (phase 11 saves, reloads and resumes them)."""
     import numpy as np
     import repro_torch as rt
     from repro_torch.algorithms import ALS, PCA, frobenius, tsqr
@@ -2625,7 +2667,7 @@ def phase_estimators(torch, seed, smi, sparse):
     ck.control(abs(fro * (1 - 1e-4) - fro64) / fro64 > 1e-5, "frobenius off by 1e-4")
     print(f"[10] PCA transform on {EST_SAMPLE} rows within the GEMM limit of float64 "
           f"(zeroed fails); frobenius(X) rel err {frel:.3e} (limit 1e-5)", flush=True)
-    del proj, pca_est, ref, got
+    del proj, ref, got
 
     # 2. TSQR
     q, r = step("tsqr", lambda: tsqr(x))
@@ -2658,7 +2700,7 @@ def phase_estimators(torch, seed, smi, sparse):
     b64 = torch.cat([xty64, torch.tensor([ysum], dtype=torch.float64, device="cuda")])
     yd = y.double()
     ss_tot = float(((yd - yd.mean()) ** 2).sum())
-    lin = {}
+    lin, models = {}, {}
     for name, make, alpha in (("linreg", lambda: LinearRegression(), 0.0),
                               ("linreg_tsqr", lambda: LinearRegression(solver="tsqr"), 0.0),
                               ("ridge", lambda: Ridge(alpha=RIDGE_ALPHA), RIDGE_ALPHA)):
@@ -2702,7 +2744,8 @@ def phase_estimators(torch, seed, smi, sparse):
               f"zeroed coefficient fails), forward rel err {fw:.3e} (cond {cond:.1f}); "
               f"predict on {EST_SAMPLE} rows equals X @ coef_ + intercept_ within the GEMM "
               f"limit; R² {score:.9f} (the float64 solution's {r2_64:.9f})", flush=True)
-        del est, pred
+        models[name] = est
+        del pred
     ck(lin["linreg"]["solver_used"] == "normal",
        f"LinearRegression() chose {lin['linreg']['solver_used']!r} on a well-conditioned X")
 
@@ -2751,7 +2794,7 @@ def phase_estimators(torch, seed, smi, sparse):
           f"and on the CPU ({cpu_s:.2f} s): {', '.join(names)} equal (a moved bin "
           f"fails); predict on {WALK_ROWS} rows equals a Python walk of the trees "
           f"(shifted leaf classes fail)", flush=True)
-    del fpred, forest, f_card, f_cpu
+    del fpred, f_card, f_cpu
 
     # 5. CascadeSVM (RBF, gamma="scale") on X's first block row in 64 chunks
     xc = x[:CSVM_ROWS].rechunk(CSVM_BLOCK)
@@ -2784,7 +2827,7 @@ def phase_estimators(torch, seed, smi, sparse):
           f"{sacc:.4f}; plan counters {st}; decision on {cidx.numel()} rows vs float64 "
           f"from sv_/dual_coef_/intercept_: max abs err {derr:.3e} (per-row limit "
           f"<= {float(lim.max()):.3e}; rotated dual coefficients fail)", flush=True)
-    del svm, dec, xc, x, data, truth, y, g64
+    del dec, data, truth, y, g64
 
     # 6. ALS and sparse PCA on the Netflix Prize ratings
     R, csr, trip = sparse
@@ -2857,7 +2900,7 @@ def phase_estimators(torch, seed, smi, sparse):
           f"fails); two fits, same bits: {same}; score on R[:{bn}] {score:.9f} "
           f"(float64 {-rmse64:.9f}, rel {srel:.2e}; a zero model's {-zero_rmse:.6f})",
           flush=True)
-    del als, sub, v_prev
+    del sub, v_prev
 
     with never_densified():
         sp = step("sparse_pca_fit", lambda: PCA(n_components=SPARSE_PCA_K,
@@ -2881,7 +2924,7 @@ def phase_estimators(torch, seed, smi, sparse):
                "zeroed sparse transform")
     print(f"[10] sparse PCA transform ({nu}x{SPARSE_PCA_K}) within the GEMM limit of "
           f"float64 (depth {row_depth}; zeroed fails); R never densified", flush=True)
-    del sp, sproj, r64, rt64, ref, got
+    del sproj, r64, rt64, ref, got
 
     launches = ds_counts()
     total = {k: sum(v.get(k, 0) for v in rec["launches"].values()) for k in launches}
@@ -2901,8 +2944,567 @@ def phase_estimators(torch, seed, smi, sparse):
     print(f"[10] card: {smi}; estimators phase: {json.dumps(rec)}; stacked_matmul "
           f"launches by route {json.dumps(total)}; plain GEMMs {plain}", flush=True)
     ck.raise_any()
-    return total
+    fitted = {"x": x, "xc": xc, "yc": yc, "pca": pca_est, "linreg": models["linreg"],
+              "ridge": models["ridge"], "forest": forest, "csvm": svm, "als": als,
+              "sparse_pca": sp}
+    return total, fitted
 
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the durable path
+# ---------------------------------------------------------------------------
+
+TXT_ROWS = X_BLOCK[0] + 4_096               # one full block row and a ragged tail
+SVM_USERS = NETFLIX_BLOCK[0] + 1_000        # one full block row of R and a tail
+RESUME_ROWS = 8 * X_BLOCK[0]                # the K-means crash/resume cut
+PREDICT_ROWS = X_BLOCK[0]                   # rows the reloaded models predict on
+INGEST_PEAK_ROWS = 3                        # host peak limit, in block rows
+DISK_NEED = 6e9                             # bytes phase 11 writes at most at once
+TXT_CHECK_ROWS = 2_000                      # text rows held to np.savetxt's bytes
+OVERHEAD_RUNS = 5                           # runs timed for run_resilient's overhead
+
+
+def format_e4(rows) -> bytes:
+    """``rows`` (a finite float32 tensor, n x m) as ``np.savetxt(...,
+    delimiter=",", fmt="%.4e")`` writes them, the digits computed on the
+    tensor's device: each value is exactly ``mant / 2**p`` with a 24-bit
+    ``mant``, so ``mant·10**(4-e) >> p`` in int64 is the exact decimal
+    scaling, rounded half to even as printf rounds.  Values outside
+    1e-7 <= |v| < 1e5 (where that product could pass int64) are formatted
+    by Python."""
+    import numpy as np
+    import torch
+    check(bool(torch.isfinite(rows).all()), "format_e4 takes finite values")
+    dev = rows.device
+    n, m = rows.shape
+    v = rows.double().reshape(-1)
+    a = v.abs()
+    frac, k = torch.frexp(a)
+    mant = (frac * 2.0 ** 24).long()
+    p = 24 - k.long()
+    nz = a > 0
+    e = torch.floor(torch.log10(torch.where(nz, a, 1.0))).long()
+    ok = nz & (e >= -7) & (e <= 4)
+    pow10 = torch.tensor([10 ** i for i in range(12)], device=dev)
+    pp = p.clamp(1, 61)
+
+    def scaled(e):
+        return mant * pow10[(4 - e).clamp(0, 11)]
+
+    for _ in range(2):                 # floor(log10) may be one off
+        fl = scaled(e) >> pp
+        e = e - (ok & (fl < 10_000)).long() + (ok & (fl >= 100_000)).long()
+        ok &= (e >= -7) & (e <= 4)
+    num = scaled(e)
+    q = num >> pp
+    r = num - (q << pp)
+    half = torch.ones_like(pp) << (pp - 1)
+    q = q + ((r > half) | ((r == half) & (q % 2 == 1))).long()
+    carry = q == 100_000
+    q = torch.where(carry, 10_000, q)
+    e = e + carry.long()
+    q = torch.where(ok, q, 0)
+    out = torch.zeros((n * m, 13), dtype=torch.uint8, device=dev)
+    out[:, 0] = torch.where(torch.signbit(v), ord("-"), 0)
+    for j, pos in enumerate((1, 3, 4, 5, 6)):
+        out[:, pos] = ord("0") + q // 10 ** (4 - j) % 10
+    out[:, 2], out[:, 7] = ord("."), ord("e")
+    out[:, 8] = torch.where(e < 0, ord("-"), ord("+"))
+    out[:, 9], out[:, 10] = ord("0") + e.abs() // 10, ord("0") + e.abs() % 10
+    out[:, 11] = ord(",")
+    out.view(n, m, 13)[:, -1, 11] = ord("\n")
+    out[~nz, 1:11] = torch.tensor(list(b"0.0000e+00"), dtype=torch.uint8, device=dev)
+    host = out.cpu().numpy()
+    rest = (nz & ~ok).nonzero().reshape(-1).tolist()
+    vals = a[rest].tolist() if rest else []
+    for i, x in zip(rest, vals):
+        host[i, 1:11] = np.frombuffer(("%.4e" % x).encode(), np.uint8)
+    flat = host[:, :12].reshape(-1)
+    return flat[flat != 0].tobytes()
+
+
+def write_svmlight(path: str, csr, label: float = 0.0) -> None:
+    """``csr``'s rows as svmlight lines ``label c:v ...``, features 1-based,
+    each token ``f"{c + 1}:{v:.4e}"`` as ``tests/test_io.py`` writes them
+    (the values of R are 1..5, so tokens come from one table per rating)."""
+    import numpy as np
+    vals = np.unique(csr.data)
+    table = np.array([[f"{c + 1}:{v:.4e}" for v in vals]
+                      for c in range(csr.shape[1])], dtype=object)
+    tokens = table[csr.indices, np.searchsorted(vals, csr.data)]
+    head = f"{label} "
+    with open(path, "w") as f:
+        for i in range(csr.shape[0]):
+            f.write(head + " ".join(tokens[csr.indptr[i]:csr.indptr[i + 1]]) + "\n")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_durable(torch, smi, fitted, km, A, B, sparse):
+    """Phase 11: ingestion, model files, crash and resume, and guarded
+    execution on phase 4's and phase 10's arrays and fitted estimators;
+    returns the ``stacked_matmul`` / ``kmeans_assign`` launches of its steps
+    by route."""
+    import gc
+    import shutil
+    import tempfile
+    import tracemalloc
+    import numpy as np
+    import scipy.sparse as ssp
+    import repro_torch as rt
+    import repro_torch.resilience as R
+    from repro_torch.algorithms import ALS, KMeans
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import io as rio
+    from repro_torch.estimators import CascadeSVM, load_model
+    from repro_torch.kernels.matmul.ref import stacked_matmul_ref
+    from repro_torch.obs import registry
+
+    t_phase = time.perf_counter()
+    rec = {"wall_s": {}, "launches": {}, "added_mb": {}, "rates": {}}
+    x, xc = fitted["x"], fitted["xc"]
+    R_, csr, _ = sparse
+    n, m = x.shape
+    blockrow_bytes = X_BLOCK[0] * X_BLOCK[1] * 4
+
+    def step(name, fn):
+        """``fn()`` with its launches (counts zeroed before, read after),
+        CUDA-synchronised wall seconds and added peak device memory.  No
+        garbage collection per step: at ~0.2 s each on this phase's heap,
+        its 55 steps would spend ~10 s collecting; the phase collects
+        where it reads memory."""
+        ds_counts(zero=True)
+        out = est_step(torch, rec, name, fn, collect=False)
+        rec["launches"][name] = {k: v for k, v in ds_counts().items() if v}
+        return out
+
+    def say(what):
+        print(f"[11] {what} (card: {smi})", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= DISK_NEED, f"{tmp}: {free / 1e9:.1f} GB free, phase 11 "
+                                 f"writes up to {DISK_NEED / 1e9:.1f} GB")
+        say(f"scratch {tmp}: {free / 1e9:.1f} GB free")
+
+        # 1. ingestion ------------------------------------------------------
+        npy = os.path.join(tmp, "x.npy")
+        t0 = time.perf_counter()
+        host_x = x.collect().cpu().numpy()
+        np.save(npy, host_x)
+        rec["wall_s"]["npy_write"] = time.perf_counter() - t0
+        head = host_x[:TXT_ROWS].copy()
+        del host_x
+        gc.collect()
+        tracemalloc.start()
+        loaded = step("load_npy_rows", lambda: rio.load_npy_rows(npy, X_BLOCK,
+                                                                 device="cuda"))
+        _, host_peak = tracemalloc.get_traced_memory()
+        tracemalloc.stop()
+        check(loaded.shape == x.shape and loaded.block_shape == x.block_shape
+              and loaded.pad_state == x.pad_state, f"loaded {loaded} vs {x}")
+        check(torch.equal(loaded.blocks, x.blocks), "load_npy_rows: not X's bits")
+        check(host_peak <= INGEST_PEAK_ROWS * blockrow_bytes,
+              f"load_npy_rows host peak {host_peak} > {INGEST_PEAK_ROWS} block rows")
+        gbs = n * m * 4 / rec["wall_s"]["load_npy_rows"] / 1e9
+        rec["rates"]["load_npy_rows_GBps"] = gbs
+        rec["rates"]["load_npy_rows_host_peak_blockrows"] = host_peak / blockrow_bytes
+        say(f"load_npy_rows {n}x{m} blocks {X_BLOCK}: X's bits; "
+            f"{rec['wall_s']['load_npy_rows']:.3f} s ({gbs:.2f} GB/s); host "
+            f"tracemalloc peak {host_peak / 1e6:.1f} MB ({host_peak / blockrow_bytes:.2f} "
+            f"block rows, limit {INGEST_PEAK_ROWS}); added device peak "
+            f"{rec['added_mb']['load_npy_rows']:.0f} MB (the block rows and their "
+            f"stack: X twice)")
+        del loaded
+        # a fault at block row 3: the load raises, the card holds nothing more
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        raised = None
+        with R.inject(R.FaultSpec(kind="io", site="io_load",
+                                  where={"source": "load_npy_rows",
+                                         "block_row": 3})) as (armed,):
+            try:
+                rio.load_npy_rows(npy, X_BLOCK, device="cuda")
+            except R.IOLoadError as exc:
+                raised = str(exc)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        check(raised is not None and armed.fired == 1,
+              "an io_load fault at block row 3 did not raise IOLoadError")
+        check(after == before, f"memory_allocated {before} before the failed load, "
+                               f"{after} after")
+        say(f"io_load fault at block row 3 of the .npy load: IOLoadError ({raised}); "
+            f"memory_allocated {before} before and after")
+        os.remove(npy)
+
+        txt = os.path.join(tmp, "x.txt")
+        t0 = time.perf_counter()
+        text = format_e4(x.collect()[:TXT_ROWS])
+        with open(txt, "wb") as f:
+            f.write(text)
+        rec["wall_s"]["txt_write"] = time.perf_counter() - t0
+        # the card's digits are np.savetxt's: its own bytes on the first rows
+        with io.BytesIO() as b:
+            np.savetxt(b, head[:TXT_CHECK_ROWS], delimiter=",", fmt="%.4e")
+            check(text.startswith(b.getvalue()),
+                  "format_e4 differs from np.savetxt(fmt='%.4e') on X's first rows")
+        del text
+        txt_mb = os.path.getsize(txt) / 1e6
+        t0 = time.perf_counter()
+        oracle = rt.from_array(np.loadtxt(txt, delimiter=",", dtype=np.float32,
+                                          ndmin=2), X_BLOCK, device="cuda")
+        rec["wall_s"]["txt_oracle"] = time.perf_counter() - t0
+        got = step("load_txt_file", lambda: rio.load_txt_file(txt, X_BLOCK,
+                                                              device="cuda"))
+        check(got.shape == (TXT_ROWS, m) and got.stacked_grid == (2, 1),
+              f"load_txt_file shape {got.shape}, grid {got.stacked_grid}")
+        check(torch.equal(got.blocks, oracle.blocks) and got.pad_state == oracle.pad_state,
+              "load_txt_file: not the bits of from_array(np.loadtxt(path))")
+        close = float((got.collect() - torch.from_numpy(head).cuda()).abs().max())
+        mbs = txt_mb / rec["wall_s"]["load_txt_file"]
+        rec["rates"]["load_txt_file_MBps"] = mbs
+        say(f"load_txt_file {TXT_ROWS}x{m} (%.4e, {txt_mb:.1f} MB, formatted on the card "
+            f"and written in {rec['wall_s']['txt_write']:.2f} s, the first "
+            f"{TXT_CHECK_ROWS} rows np.savetxt's bytes): the bits of "
+            f"from_array(np.loadtxt) ({rec['wall_s']['txt_oracle']:.2f} s); "
+            f"{rec['wall_s']['load_txt_file']:.2f} s ({mbs:.1f} MB/s); max |x - X| "
+            f"{close:.2e} (the %.4e rounding)")
+        del got, oracle, head
+        os.remove(txt)
+
+        svm = os.path.join(tmp, "r.svm")
+        sub = csr[:SVM_USERS]
+        t0 = time.perf_counter()
+        write_svmlight(svm, sub)
+        rec["wall_s"]["svm_write"] = time.perf_counter() - t0
+        (sx, sy) = step("load_svmlight_file", lambda: rio.load_svmlight_file(
+            svm, NETFLIX_BLOCK, n_features=NETFLIX_MOVIES, device="cuda"))
+        want = rt.from_scipy(sub, NETFLIX_BLOCK, device="cuda")
+        sx.check_invariants()
+        check(sx.block_format == "bcoo" and sx.blocks.nse == want.blocks.nse
+              and torch.equal(sx.blocks.data, want.blocks.data)
+              and torch.equal(sx.blocks.indices, want.blocks.indices),
+              "load_svmlight_file: not from_scipy's stacked COO")
+        check(sy.shape == (SVM_USERS, 1) and bool((sy.collect() == 0).all()),
+              "load_svmlight_file labels")
+        svm_s = rec["wall_s"]["svm_write"] + rec["wall_s"]["load_svmlight_file"]
+        say(f"load_svmlight_file of R's first {SVM_USERS} users ({sub.nnz} ratings, "
+            f"{os.path.getsize(svm) / 1e6:.1f} MB, 1-based): from_scipy's stacked COO "
+            f"(nse {sx.blocks.nse}), invariants hold; write "
+            f"{rec['wall_s']['svm_write']:.2f} s + parse "
+            f"{rec['wall_s']['load_svmlight_file']:.2f} s = {svm_s:.2f} s")
+        del sx, sy, want, sub
+        os.remove(svm)
+
+        npz = os.path.join(tmp, "r.npz")
+        t0 = time.perf_counter()
+        ssp.save_npz(npz, csr, compressed=False)
+        rec["wall_s"]["npz_write"] = time.perf_counter() - t0
+        back = step("load_npz_sparse", lambda: rio.load_npz_sparse(
+            npz, NETFLIX_BLOCK, device="cuda"))
+        check(back.shape == R_.shape and back.blocks.nse == R_.blocks.nse
+              and torch.equal(back.blocks.data, R_.blocks.data)
+              and torch.equal(back.blocks.indices, R_.blocks.indices),
+              "load_npz_sparse: not R's triplets")
+        say(f"load_npz_sparse of R ({csr.nnz} ratings, {os.path.getsize(npz) / 1e9:.2f} "
+            f"GB uncompressed): R's stacked COO; write {rec['wall_s']['npz_write']:.2f} s, "
+            f"load {rec['wall_s']['load_npz_sparse']:.2f} s")
+        del back
+        os.remove(npz)
+
+        # 2. model files ----------------------------------------------------
+        xs = x[:PREDICT_ROWS]
+        rs = R_[:NETFLIX_BLOCK[0]]
+        pairs = [(0, 0), (NETFLIX_USERS // 4, NETFLIX_MOVIES // 3),
+                 (NETFLIX_USERS - 1, NETFLIX_MOVIES - 1)]
+
+        def outputs(name, est):
+            if name == "kmeans":
+                return {"predict": est.predict(xs).blocks}
+            if name in ("pca", "sparse_pca"):
+                return {"transform": est.transform(rs if name == "sparse_pca"
+                                                   else xs).blocks}
+            if name == "csvm":
+                return {"decision": est.decision_function(xc).blocks}
+            if name == "als":
+                return {"u_": est.u_.blocks, "v_": est.v_.blocks,
+                        "predict": torch.tensor([est.predict(i, j) for i, j in pairs])}
+            return {"predict": est.predict(xs).blocks}
+
+        models = {"kmeans": km, "pca": fitted["pca"], "linreg": fitted["linreg"],
+                  "ridge": fitted["ridge"], "forest": fitted["forest"],
+                  "csvm": fitted["csvm"], "als": fitted["als"],
+                  "sparse_pca": fitted["sparse_pca"]}
+        files = {}
+        for name, est in models.items():
+            d = os.path.join(tmp, "models", name)
+            step(f"save_{name}", lambda: est.save_model(d))
+            back = step(f"load_{name}", lambda: load_model(d, device="cuda"))
+            check(type(back) is type(est), f"{name}: loaded a {type(back).__name__}")
+            want = step(f"outputs_{name}", lambda: outputs(name, est))
+            got = step(f"outputs_loaded_{name}", lambda: outputs(name, back))
+            for key in want:
+                check(torch.equal(got[key], want[key]),
+                      f"{name}: the loaded model's {key} differs from the fitted one's")
+            with open(os.path.join(d, "step_00000000", "manifest.json")) as f:
+                man = json.load(f)
+            dtypes = {e["path"]: e["dtype"] for e in man["leaves"]}
+            # leaves from the device are 32-bit; host NumPy leaves keep their
+            # dtype, as the reference writes them (coef_ float64, classes_)
+            host_fields = {k for k, v in est._fitted_state().items()
+                           if isinstance(v, np.ndarray)}
+            wide = {p: t for p, t in dtypes.items()
+                    if p not in host_fields and t not in ("float32", "int32")}
+            check(not wide, f"{name}: device leaves saved wider than 32 bits: {wide}")
+            files[name] = {"save_s": rec["wall_s"][f"save_{name}"],
+                           "load_s": rec["wall_s"][f"load_{name}"],
+                           "bytes": dir_bytes(d), "dtypes": dtypes,
+                           "outputs_equal": sorted(want)}
+        # the reloaded K-means predicts through kmeans_assign on the mma route
+        kl = rec["launches"]["outputs_loaded_kmeans"]
+        check(kl.get("kmeans_assign", 0) > 0
+              and kl.get("kmeans_assign/mma", 0) == kl["kmeans_assign"],
+              f"the loaded KMeans predict's assignments by route {kl}: want all on mma")
+        rec["model_files"] = files
+        say(f"save_model/load_model(device='cuda') of {len(models)} fitted estimators: "
+            f"each output bit-equal to the fitted object's; {json.dumps(files)}")
+
+        # 3. crash and resume ----------------------------------------------
+        xk = x[:RESUME_ROWS]
+        kw = dict(n_clusters=N_CLUSTERS, max_iter=20, tol=1e-4, seed=0)
+        plain = step("kmeans_fit", lambda: KMeans(**kw).fit(xk))
+        if plain.n_iter_ < 3:
+            say(f"K-means converged in {plain.n_iter_} iterations at tol=1e-4: the "
+                f"resume check runs with tol=0, max_iter=6")
+            kw.update(tol=0.0, max_iter=6)
+            plain = step("kmeans_fit", lambda: KMeans(**kw).fit(xk))
+        k_crash = max(2, plain.n_iter_ // 2)
+        crash = os.path.join(tmp, "kmeans_crash")
+
+        def crashed(fit, at: int) -> int:
+            """Run ``fit`` with a crash armed at fit iteration ``at``; the
+            number of crashes it took (1, or 0 when it finished)."""
+            with R.inject(R.FaultSpec(kind="crash", site="fit_iteration",
+                                      where={"iteration": at})) as (a,):
+                try:
+                    fit()
+                except R.CrashError:
+                    return a.fired
+            return 0
+
+        fired = step("kmeans_crash", lambda: crashed(
+            lambda: KMeans(**kw).fit(xk, checkpoint_dir=crash), k_crash))
+        check(fired == 1, f"K-means: no crash at iteration {k_crash}")
+        res = step("kmeans_resume", lambda: KMeans(**kw).fit(
+            xk, checkpoint_dir=crash, resume=crash))
+        # every iteration of the crashed and the resumed fit ran with
+        # checkpoint_dir: the checkpointed fit is held to the plain one here
+        check(res.n_iter_ == plain.n_iter_ and torch.equal(res.centers_, plain.centers_),
+              f"K-means resumed at {k_crash}: n_iter {res.n_iter_} vs {plain.n_iter_}, "
+              f"or other center bits")
+        check(latest_step(crash) == plain.n_iter_,
+              f"K-means checkpoints end at {latest_step(crash)}, not {plain.n_iter_}")
+        kl = {k: sum(rec["launches"][s].get(k, 0) for s in
+                     ("kmeans_fit", "kmeans_crash", "kmeans_resume"))
+              for k in ("kmeans_assign", "kmeans_assign/mma")}
+        check(kl["kmeans_assign"] > 0 and kl["kmeans_assign/mma"] == kl["kmeans_assign"],
+              f"K-means crash/resume assignments by route {kl}: want all on mma")
+        say(f"KMeans({kw}) on X's first {RESUME_ROWS} rows: n_iter {plain.n_iter_}; "
+            f"checkpointed, crashed at iteration {k_crash} and resumed: the plain fit's "
+            f"n_iter and center bits, a checkpoint for every iteration; kmeans_assign {kl}")
+
+        als_ref = fitted["als"]
+        als_dir = os.path.join(tmp, "als")
+        als_kw = dict(n_factors=ALS_FACTORS, reg=ALS_REG, max_iter=ALS_ITERS,
+                      check_convergence=False)
+        fired = step("als_crash", lambda: crashed(
+            lambda: ALS(**als_kw).fit(R_, checkpoint_dir=als_dir), 5))
+        check(fired == 1, "ALS: no crash at iteration 5")
+        als_res = step("als_resume", lambda: ALS(**als_kw).fit(
+            R_, checkpoint_dir=als_dir, resume=als_dir))
+        check(als_res.n_iter_ == als_ref.n_iter_
+              and torch.equal(als_res.u_.blocks, als_ref.u_.blocks)
+              and torch.equal(als_res.v_.blocks, als_ref.v_.blocks),
+              "ALS resumed at iteration 5: u_/v_ bits differ from phase 10's fit")
+        say(f"ALS({als_kw}) on R crashed at iteration 5 and resumed: u_ and v_ keep "
+            f"phase 10's bits; checkpoints {dir_bytes(als_dir) / 1e6:.1f} MB")
+        shutil.rmtree(als_dir)
+
+        svm_ref = fitted["csvm"]
+        svm_dir = os.path.join(tmp, "csvm")
+        svm_kw = dict(kernel="rbf", gamma="scale", sv_cap=CSVM_CAP, max_iter=CSVM_ITERS)
+        yc = fitted["yc"]
+        fired = step("csvm_crash", lambda: crashed(
+            lambda: CascadeSVM(**svm_kw).fit(xc, yc, checkpoint_dir=svm_dir), 2))
+        check(fired == 1, "CSVM: no crash at iteration 2")
+        svm_res = step("csvm_resume", lambda: CascadeSVM(**svm_kw).fit(
+            xc, yc, checkpoint_dir=svm_dir, resume=svm_dir))
+        check(svm_res.n_iter_ == svm_ref.n_iter_ and svm_res.n_sv_ == svm_ref.n_sv_
+              and svm_res.intercept_ == svm_ref.intercept_
+              and all(torch.equal(getattr(svm_res, f), getattr(svm_ref, f))
+                      for f in ("sv_", "sv_y_", "dual_coef_")),
+              "CSVM resumed at iteration 2: fitted bits differ from phase 10's fit")
+        dec_res = step("csvm_resumed_decision", lambda: svm_res.decision_function(xc))
+        dec_ref = step("csvm_fitted_decision", lambda: svm_ref.decision_function(xc))
+        check(torch.equal(dec_res.blocks, dec_ref.blocks),
+              "CSVM resumed: decision values differ")
+        say(f"CascadeSVM({svm_kw}) on phase 10's cut crashed at iteration 2 and "
+            f"resumed: sv_, sv_y_, dual_coef_, intercept_ and decision values keep "
+            f"phase 10's bits (n_iter {svm_res.n_iter_})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 4. guarded execution -------------------------------------------------
+    R.reset_stats()
+    chain = A.lazy() @ B
+    want = step("compute", lambda: rt.compute(chain))
+    got = step("run_resilient", lambda: R.run_resilient(chain))
+    st = R.stats()
+    check(st == {"executions": 1, "retries": 0, "degradations": 0, "recoveries": 0,
+                 "guard_failures": 0}, f"clean path resilience counters {st}")
+    check(torch.equal(got.blocks, want.blocks), "run_resilient: not compute()'s bits")
+    check(rec["launches"]["run_resilient"] == rec["launches"]["compute"],
+          f"run_resilient launched {rec['launches']['run_resilient']}, compute() "
+          f"{rec['launches']['compute']}")
+    ref = stacked_matmul_ref(A.blocks.double(), B.blocks.double())
+    check(gemm_bad(want.blocks, ref, SQUARE) == 0, "A @ B beyond the GEMM limit")
+
+    def clock(fn):
+        times = []
+        for _ in range(OVERHEAD_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    ms_compute = step("overhead_compute", lambda: clock(lambda: rt.compute(chain)))
+    ms_resilient = step("overhead_run_resilient",
+                        lambda: clock(lambda: R.run_resilient(chain)))
+    check(rec["launches"]["overhead_run_resilient"] == rec["launches"]["overhead_compute"],
+          f"timed run_resilient launched {rec['launches']['overhead_run_resilient']}, "
+          f"compute() {rec['launches']['overhead_compute']}")
+    rec["wall_s"]["guard_overhead_ms"] = ms_resilient - ms_compute
+    say(f"run_resilient(A @ B) {SQUARE}² f32, clean: counters {st}; compute()'s bits "
+        f"and launches {rec['launches']['compute']}; {ms_resilient:.3f} ms against "
+        f"compute()'s {ms_compute:.3f} ms (median of {OVERHEAD_RUNS}): adds "
+        f"{ms_resilient - ms_compute:.3f} ms")
+
+    R.reset_stats()
+    with R.inject(R.FaultSpec(kind="transient", site="plan_execute", at=1)):
+        again = step("transient", lambda: R.run_resilient(chain))
+    st = R.stats()
+    check(st["retries"] == 1 and st["degradations"] == 0 and
+          torch.equal(again.blocks, want.blocks), f"transient retry: {st}")
+    say(f"one injected transient: retries {st['retries']}, same bits")
+
+    from repro_torch.kernels.matmul import kernel as mk
+
+    def workspace_of(name, fn):
+        """``step(name, fn)`` and the largest split-K workspace (bytes) a
+        ``stacked_matmul`` launch of it allocated."""
+        mk.stacked_matmul.max_workspace = 0
+        return step(name, fn), mk.stacked_matmul.max_workspace
+
+    def einsum_rung(name, lz):
+        """``lz`` through ``run_resilient`` with an ``oom`` on the fused and
+        eager rungs: its result and largest split-K workspace."""
+        R.reset_stats()
+        with R.inject(R.FaultSpec(kind="oom", site="plan_execute",
+                                  modes=("fused", "eager"), times=None)):
+            out, ws = workspace_of(name, lambda: R.run_resilient(lz))
+        st = R.stats()
+        check(st["degradations"] == 2 and st["recoveries"] == 1,
+              f"{name}: oom ladder {st}")
+        check(ws <= mk.LOW_MEMORY_WORKSPACE, f"{name}: a {ws}-byte split-K workspace "
+                                             f"on the low-memory rung")
+        return out, ws
+
+    cap = mk.LOW_MEMORY_WORKSPACE
+    plain0 = registry.snapshot("gemm")["gemm.dispatch_plain"]
+    low, _ = einsum_rung("einsum_rung", chain)
+    check(rec["launches"]["einsum_rung"] == rec["launches"]["compute"],
+          f"einsum rung: launches {rec['launches']['einsum_rung']}, compute() "
+          f"{rec['launches']['compute']}")
+    bad = gemm_bad(low.blocks, want.blocks.double(), SQUARE)
+    check(bad == 0, f"einsum rung: {bad} elements beyond the GEMM limit of the kernel's")
+    err = float((low.blocks.double() - want.blocks.double()).abs().max())
+    # a product whose fused split-K workspace passes the cap: the einsum rung
+    # runs it within the cap, in fewer splits
+    xk = x[:RESUME_ROWS]
+    gram = xk.lazy().T @ xk
+    fused, fused_ws = workspace_of("gram_compute", lambda: rt.compute(gram))
+    one, one_ws = einsum_rung("gram_einsum_rung", gram)
+    check(fused_ws > cap and rec["launches"]["gram_einsum_rung"].get("stacked_matmul", 0) > 0,
+          f"Gram: fused workspace {fused_ws} bytes (want > {cap}), einsum rung "
+          f"launches {rec['launches']['gram_einsum_rung']}")
+    g64 = stacked_matmul_ref(xk.blocks.double(), xk.blocks.double(), transpose_a=True)
+    bad = (gemm_bad(fused.blocks, g64, RESUME_ROWS), gemm_bad(one.blocks, g64, RESUME_ROWS))
+    check(bad == (0, 0), f"Gram: elements beyond the GEMM limit (fused, einsum rung) {bad}")
+    gerr = float((one.blocks.double() - fused.blocks.double()).abs().max())
+    plain = registry.snapshot("gemm")["gemm.dispatch_plain"] - plain0
+    check(plain == 0, f"{plain} GEMMs took the plain version on the card")
+    say(f"oom injected on the fused and eager rungs: degradations 2; the einsum rung "
+        f"launched {rec['launches']['einsum_rung']} (compute()'s) in "
+        f"{rec['wall_s']['einsum_rung']:.3f} s, within the GEMM limit of the kernel's "
+        f"(max abs diff {err:.3e}); Xᵀ X on {RESUME_ROWS} rows: fused split-K workspace "
+        f"{fused_ws} bytes in {rec['wall_s']['gram_compute']:.4f} s, einsum rung "
+        f"{one_ws} bytes (cap {cap}) in {rec['wall_s']['gram_einsum_rung']:.4f} s, "
+        f"both within the GEMM limit of float64, max abs diff {gerr:.3e}; plain GEMMs "
+        f"on the card {plain}")
+    rec["rates"]["gram_workspace_bytes"] = {"fused": fused_ws, "einsum_rung": one_ws}
+    del low, ref, fused, one, g64
+
+    total = torch.cuda.mem_get_info()[1]
+    kind = None
+    try:
+        torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as exc:
+        kind = R.classify_error(exc)
+    check(kind == R.OOM, f"a {2 * total / 1e9:.0f} GB torch.empty classified {kind}")
+    probe = torch.ones(1 << 20, device="cuda")
+    check(float(probe.sum()) == float(1 << 20), "the allocation after an OOM failed")
+    del probe
+    say(f"torch.empty of {2 * total / 1e9:.0f} GB: torch.cuda.OutOfMemoryError, "
+        f"classified {kind!r}; the next allocation succeeds")
+
+    R.reset_stats()
+
+    def poisoned():
+        with R.inject(R.FaultSpec(kind="poison", site="plan_result", block=(1, 2))):
+            try:
+                R.run_resilient(chain, guard="finite")
+            except R.NumericalDivergence as exc:
+                return exc
+        return None
+
+    caught = step("poison", poisoned)
+    check(caught is not None and "block (1, 2)" in str(caught)
+          and [(b.gi, b.gj) for b in caught.report.bad_blocks] == [(1, 2)],
+          f"poisoned block (1, 2): {caught!r}")
+    check(R.stats()["guard_failures"] == 1, f"guard counters {R.stats()}")
+    rep = step("finite_report", want.finite_report)
+    check(rep.ok, f"finite_report of the clean result: {rep.describe()}")
+    say(f"NaN poisoned into block (1, 2) under guard='finite': "
+        f"NumericalDivergence ({caught}); finite_report of the clean result: "
+        f"{rep.describe()}")
+    del caught, want, got, again
+
+    launches = {}
+    for counts in rec["launches"].values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    rec["wall_s"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"[11] card: {smi}; durable phase: {json.dumps(rec)}; launches {launches}",
+          flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2933,7 +3535,7 @@ def main(argv=None) -> int:
     kernels, whole = phase_times(torch, x, A, B, Ab, Bb, km, launches)
     print(f"[5] card: {smi}; main path wall: {json.dumps(wall)}")
     lazy = phase_lazy(torch, gen, args.seed, x, A, B, km, smi)
-    del x, A, B, Ab, Bb, km
+    del x, Ab, Bb                  # A, B and km go on to phase 11
     torch.cuda.empty_cache()
     params, hx, hkm, lm_launches, lm_wall, profiles = lm_path(torch, gen)
     del params
@@ -2967,12 +3569,19 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse_launches, sparse_rows, sparse = phase_sparse(torch, gen, smi)
-    est_launches = phase_estimators(torch, args.seed, smi, sparse)
-    del sparse
+    est_launches, fitted = phase_estimators(torch, args.seed, smi, sparse)
+    durable = phase_durable(torch, smi, fitted, km, A, B, sparse)
+    del sparse, fitted, km, A, B
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
-        for path, counts in (("sparse", sparse_launches), ("estimators", est_launches)):
-            gemm["launches_by_path"][path] = counts[f"stacked_matmul/{route}"]
-            gemm["launches"] += counts[f"stacked_matmul/{route}"]
+        for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),
+                             ("durable", durable)):
+            gemm["launches_by_path"][path] = counts.get(f"stacked_matmul/{route}", 0)
+            gemm["launches"] += counts.get(f"stacked_matmul/{route}", 0)
+    assign = kernels[2]
+    assign["launches_by_path"]["durable"] = durable.get("kmeans_assign", 0)
+    assign["launches"] += durable.get("kmeans_assign", 0)
+    for r in ("mma", "simt"):
+        assign["launches_by_route"][r] += durable.get(f"kmeans_assign/{r}", 0)
     print(f"[9] sparse ops (torch ops, no TPU kernel): "
           f"{json.dumps({'card': smi, 'ops': sparse_rows})}", flush=True)
     print(f"[8] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "

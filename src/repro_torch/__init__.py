@@ -10,7 +10,12 @@ of its inputs.  ``repro_torch.lazy()`` (or ``DsArray.lazy()``) records ops
 as a plan that ``compute()`` optimizes and runs (``core.expr``,
 ``core.plan``).  The dislib estimators: ``estimators`` (CascadeSVM, the
 linear models, the random forest) and ``algorithms`` (KMeans, ALS, PCA,
-TSQR, the Dataset baseline's K-means and ALS).
+TSQR, the Dataset baseline's K-means and ALS), with ``save_model`` /
+``load_model`` and per-iteration fit checkpoints (``checkpoint``, the
+reference's on-disk format).  Ingestion: ``core.io`` (streaming text,
+svmlight and ``.npy`` loaders).  ``resilience``: fault injection,
+``run_resilient`` (retry and the fused -> eager -> einsum ladder) and the
+block-granular numerical guards.
 """
 
 from repro_torch import core
@@ -18,9 +23,11 @@ from repro_torch.core import *  # noqa: F401,F403
 from repro_torch import algorithms, estimators
 from repro_torch.algorithms import *  # noqa: F401,F403
 from repro_torch.estimators import *  # noqa: F401,F403
+from repro_torch import checkpoint, resilience
 
 __version__ = "0.1.0"
 
-__all__ = (["core", "algorithms", "estimators", "__version__"]
+__all__ = (["core", "algorithms", "estimators", "checkpoint", "resilience",
+            "__version__"]
            + list(core.__all__) + list(algorithms.__all__)
            + list(estimators.__all__))

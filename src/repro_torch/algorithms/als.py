@@ -28,8 +28,8 @@ import torch
 from repro_torch.core.dataset_baseline import Dataset
 from repro_torch.core.dsarray import DsArray, from_array, random_array
 from repro_torch.core.structural import gram
-from repro_torch.estimators.base import (BaseEstimator, _iter_span,
-                                         _no_checkpoints)
+from repro_torch.estimators.base import (BaseEstimator, _FitCheckpoint,
+                                         _fire, _iter_span)
 
 
 def _solve_gram_ds(y: DsArray, reg: float) -> torch.Tensor:
@@ -72,16 +72,20 @@ class ALS(BaseEstimator):
 
     def fit(self, r: DsArray, y=None, checkpoint_dir: Optional[str] = None,
             resume: Optional[str] = None) -> "ALS":
+        """Fit U and V.  ``checkpoint_dir`` commits ``{u, v, prev, done}``
+        after every iteration; ``resume`` restarts from the newest committed
+        iteration in that directory."""
         del y                     # the ratings matrix IS the target
-        _no_checkpoints(self, checkpoint_dir, resume)
         with self._driver_scope():
-            return self._fit(r)
+            return self._fit(r, checkpoint_dir, resume)
 
-    def _fit(self, r: DsArray) -> "ALS":
+    def _fit(self, r: DsArray, checkpoint_dir: Optional[str],
+             resume: Optional[str]) -> "ALS":
         r = self._validate_x(r)
         n, m = r.shape
         f = self.n_factors
         dev = r.device
+        name = type(self).__name__
         # two generators on r's device, seeded from ``seed``
         su, sv = np.random.SeedSequence(self.seed).generate_state(2)
         gu = torch.Generator(device=dev).manual_seed(int(su))
@@ -94,15 +98,32 @@ class ALS(BaseEstimator):
 
         prev = float("inf")
         it = 0
-        for it in range(1, self.max_iter + 1):
+        start_it = 1
+        if resume is not None:
+            got = _FitCheckpoint(resume, name).load(device=dev)
+            if got is not None:
+                it, st = got
+                u, v, prev = st["u"], st["v"], float(st["prev"])
+                if bool(st["done"]):
+                    self.u_, self.v_, self.n_iter_ = u, v, it
+                    return self
+                start_it = it + 1
+        ckpt = _FitCheckpoint(checkpoint_dir, name) \
+            if checkpoint_dir is not None else None
+        for it in range(start_it, self.max_iter + 1):
+            _fire("fit_iteration", estimator=name, iteration=it)
             with _iter_span(self, it):
                 u, v = self._step(r, rt, u, v)
+                done = False
                 if self.check_convergence:
                     err = self._rmse(r, u, v)
                     done = abs(prev - err) < self.tol
                     prev = err
-                    if done:
-                        break
+                if ckpt is not None:
+                    ckpt.save(it, {"u": u, "v": v, "prev": float(prev),
+                                   "done": bool(done)})
+                if done:
+                    break
         self.u_, self.v_, self.n_iter_ = u, v, it
         return self
 

@@ -8,7 +8,10 @@ sparse x takes the reference's sparse form instead: ``x·cᵀ`` and
 ``onehotᵀ·x`` contract the stored entries (``local_matmul``'s sparse
 dispatch) and the argmin runs in torch, so x is never densified.  The
 reference's jitted ``while_loop`` is a host loop here with the same
-``tol``/``max_iter`` rule: one sync per iteration to test the shift.
+``tol``/``max_iter`` rule: one sync per iteration to test the shift.  It is
+also the reference's checkpointing loop (``fit(checkpoint_dir=, resume=)``:
+the centers committed after every iteration), so the clean and the
+checkpointed fit are one code path.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from repro_torch.core.dataset_baseline import Dataset
 from repro_torch.core.dsarray import DsArray, from_array
-from repro_torch.estimators.base import BaseEstimator, _iter_span
+from repro_torch.estimators.base import (BaseEstimator, _FitCheckpoint,
+                                         _fire, _iter_span)
 from repro_torch.kernels.kmeans.ops import kmeans_assign_stacked
 from repro_torch.kernels.matmul.ops import local_matmul
 from repro_torch.obs import tracing as _tracing
@@ -154,14 +158,32 @@ class KMeans(BaseEstimator):
         rows = torch.arange(gn * bn, device=x.device).reshape(gn, bn)
         return rows < x.shape[0]
 
-    def fit(self, x: DsArray, y=None) -> "KMeans":
+    def fit(self, x: DsArray, y=None, checkpoint_dir: Optional[str] = None,
+            resume: Optional[str] = None) -> "KMeans":
+        """Fit the centers.  ``checkpoint_dir`` commits the centers after
+        every Lloyd iteration; ``resume`` restarts from the newest committed
+        iteration in that directory (k-means++ runs first all the same, as
+        in the reference).  The loop is the same with or without them, so a
+        checkpointed or resumed fit gives the bits of the plain one."""
         del y                     # unsupervised; kept for the fit(x, y) shape
         with self._driver_scope():
-            return self._fit(x)
+            return self._fit(x, checkpoint_dir, resume)
 
-    def _fit(self, x: DsArray) -> "KMeans":
+    def _step(self, x: DsArray, row_valid: torch.Tensor, centers: torch.Tensor,
+              x_sq: Optional[torch.Tensor]) -> Tuple[torch.Tensor, float]:
+        """One Lloyd iteration: (new centers, shift)."""
+        if x.is_sparse:
+            _, sums, counts = _sparse_center_stats(x, row_valid, centers, x_sq)
+        else:
+            _, sums, counts = _center_stats(x.blocks, x.shape[0], centers)
+        safe = torch.clamp(counts, min=1.0)[:, None]
+        new = torch.where(counts[:, None] > 0, sums / safe, centers)
+        return new, float(torch.sqrt(((new - centers) ** 2).sum()))
+
+    def _fit(self, x: DsArray, checkpoint_dir: Optional[str],
+             resume: Optional[str]) -> "KMeans":
         x = self._validate_x(x).ensure_zero_pad()  # contractions read raw blocks
-        n, m = x.shape
+        name = type(self).__name__
         row_valid = self._row_valid(x)
         # a sparse x's ‖x‖², hoisted out of the init and the Lloyd loop (the
         # dense kernel forms its own)
@@ -169,23 +191,26 @@ class KMeans(BaseEstimator):
         centers = _kmeanspp_init_ds(x, self.n_clusters,
                                     np.random.default_rng(self.seed),
                                     row_valid, x_sq)
-        it = 0
-        shift = float("inf")
-        with _tracing.span("fit.loop", estimator=type(self).__name__,
-                           max_iter=self.max_iter):
-            while shift > self.tol and it < self.max_iter:
-                it += 1
+        it, start_it, done = 0, 1, False
+        if resume is not None:
+            got = _FitCheckpoint(resume, name).load(device=x.device)
+            if got is not None:
+                it, st = got
+                centers, done, start_it = st["centers"], bool(st["done"]), it + 1
+        ckpt = _FitCheckpoint(checkpoint_dir, name) \
+            if checkpoint_dir is not None else None
+        todo = () if done else range(start_it, self.max_iter + 1)
+        with _tracing.span("fit.loop", estimator=name, max_iter=self.max_iter):
+            for it in todo:
+                _fire("fit_iteration", estimator=name, iteration=it)
                 with _iter_span(self, it):
-                    if x.is_sparse:
-                        _, sums, counts = _sparse_center_stats(
-                            x, row_valid, centers, x_sq)
-                    else:
-                        _, sums, counts = _center_stats(x.blocks, n, centers)
-                    safe = torch.clamp(counts, min=1.0)[:, None]
-                    new = torch.where(counts[:, None] > 0, sums / safe, centers)
-                    shift = float(torch.sqrt(((new - centers) ** 2).sum()))
-                    centers = new
-        self.centers_ = centers[:, :m]
+                    centers, shift = self._step(x, row_valid, centers, x_sq)
+                    done = shift <= self.tol
+                    if ckpt is not None:
+                        ckpt.save(it, {"centers": centers, "done": done})
+                    if done:
+                        break
+        self.centers_ = centers[:, :x.shape[1]]
         self.n_iter_ = it
         return self
 

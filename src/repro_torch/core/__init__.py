@@ -2,7 +2,8 @@
 routines, sparse blocks (``sparse``: the stacked COO, ``from_scipy``,
 ``random_sparse``), the cost-model laws (``costmodel``), the block-native
 structural ops and shuffles, the lazy plan layer (``expr`` records,
-``plan`` optimizes, caches and runs), and the paper's row-partitioned
+``plan`` optimizes, caches and runs), ingestion and spill formats
+(``io``, over the byte-range ``readers``), and the paper's row-partitioned
 Dataset baseline (``dataset_baseline``, host NumPy)."""
 
 from repro_torch.core.blocking import BlockGrid
@@ -19,6 +20,7 @@ from repro_torch.core import expr, plan
 from repro_torch.core.expr import LazyDsArray, lazy
 from repro_torch.core.plan import compute, compute_multi
 from repro_torch.core.structural import gram, take_cols, take_rows
+from repro_torch.core import io, readers
 
 __all__ = ["BlockGrid", "Dataset", "Subset", "TaskCounter", "DsArray",
            "PadState", "PAD_ZERO", "PAD_DIRTY", "pad_state_of", "from_array",
@@ -27,4 +29,4 @@ __all__ = ["BlockGrid", "Dataset", "Subset", "TaskCounter", "DsArray",
            "exact_shuffle", "structural", "gram", "take_rows", "take_cols",
            "matmul_ta", "costmodel", "sparse", "StackedCOO", "from_scipy",
            "random_sparse", "expr", "plan", "LazyDsArray", "lazy", "compute",
-           "compute_multi"]
+           "compute_multi", "io", "readers"]

@@ -368,6 +368,16 @@ class DsArray:
                 f"(global ({r}, {c}), value {g[r, c]!r})")
         return self
 
+    def finite_report(self):
+        """Block-granular NaN/Inf diagnosis (``resilience.guards``): which
+        blocks hold non-finite values, with counts and the first offending
+        in-block offset (dense) or entry slot (sparse).  Pad-state aware: a
+        DIRTY or FILL pad region never false-positives.  Returns a
+        ``FiniteReport`` (``.ok`` / ``.describe()``); blocks are named
+        ``block (gi, gj)`` in the ``check_invariants`` style."""
+        from repro_torch.resilience import guards
+        return guards.finite_report(self)
+
     # -- laziness -------------------------------------------------------------
     def lazy(self) -> "LazyDsArray":
         """This array lifted into the lazy layer: later ops record an

@@ -41,9 +41,11 @@ structure and ``nse`` like any other.
 
 Counters (group ``plan``): ``hits``/``misses`` of ``_CACHE``, ``launches``
 (plan executions), ``opt_runs``/``opt_skips`` and ``eager_launches``
-(:meth:`Plan.execute_eager`).  Spans: ``plan.optimize`` and ``plan.launch``;
-the launch span ends after ``torch.cuda.synchronize()`` when the plan ran
-on the card, so it times device work, not the enqueue.
+(:meth:`Plan.execute_eager`, the degradation rungs; with
+``backend="einsum"`` its GEMMs take the plain version).  Both executions
+fire the ``plan_execute`` fault-injection site.  Spans: ``plan.optimize``
+and ``plan.launch``; the launch span ends after ``torch.cuda.synchronize()``
+when the plan ran on the card, so it times device work, not the enqueue.
 """
 
 from __future__ import annotations
@@ -54,11 +56,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch._faults import fire as _fire
 from repro_torch.core import expr as _expr
 from repro_torch.core.dsarray import DsArray
 from repro_torch.core.sparse import StackedCOO
 from repro_torch.core.expr import (ArrayLeaf, Blockwise, Expr, Leaf, MatMul,
                                    Transpose, _is_ds, _is_sparse)
+from repro_torch.kernels.matmul import ops as _gemm
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import tracing as _tracing
 
@@ -467,6 +471,7 @@ class Plan:
 
     def execute(self) -> tuple:
         """Run the plan through its cached run callable (built on a miss)."""
+        _fire("plan_execute", mode="fused")
         run = _CACHE.get(self.key)
         cached = run is not None
         if cached:
@@ -479,11 +484,28 @@ class Plan:
         _STATS.inc("launches")
         return self._launch(run, "fused", cached=cached)
 
-    def execute_eager(self) -> tuple:
+    def execute_eager(self, backend: Optional[str] = None) -> tuple:
         """Run the plan node by node through a fresh run callable, bypassing
-        the cache; the results equal :meth:`execute`'s."""
+        the cache — the degradation rungs of ``resilience.run_resilient``.
+        The results equal :meth:`execute`'s.
+
+        ``backend="einsum"`` (the last rung) also runs every dense local
+        GEMM of this run on the card with its split-K workspace in the
+        kernel's low-memory cap (``kernels.matmul.ops.low_memory_gemm``),
+        through a context variable set for the duration of the run: no
+        environment variable chooses the route.  Never cached — this is the emergency path.
+        """
+        if backend not in (None, "einsum"):
+            raise ValueError(f"unknown GEMM backend {backend!r} (want None "
+                             f"or 'einsum')")
+        mode = backend or "eager"
+        _fire("plan_execute", mode=mode)
         _STATS.inc("eager_launches")
-        return self._launch(self._make_run(), "eager")
+        run = self._make_run()
+        if backend is None:
+            return self._launch(run, mode)
+        with _gemm.low_memory_gemm():
+            return self._launch(run, mode)
 
 
 def _roots_of(exprs) -> List[Expr]:

@@ -15,19 +15,25 @@ Fit loops record their hot products through the lazy layer
 plan, so iterations 2..N skip the optimizer and reuse the cached run
 (``core.plan``).  Fitted state lives on the device of the fitted input.
 
-Not ported yet: ``save_model``/``load_model`` and the per-iteration fit
-checkpoints (``checkpoint_dir``/``resume`` raise ``NotImplementedError``),
-and the fault-injection hook of the fit loops.
+Persistence: ``save_model``/``load_model`` and the per-iteration fit
+checkpoints (``_FitCheckpoint``, behind the fits' ``checkpoint_dir``/
+``resume``) write the reference's ``repro-model-v1`` format through
+``repro_torch.checkpoint``, so a model either package saves loads in the
+other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch._faults import fire as _fire
+from repro_torch import checkpoint as _ckpt
 from repro_torch.core import plan as _plan
 from repro_torch.core.dsarray import DsArray, from_array
 
@@ -44,15 +50,6 @@ def _iter_span(est, iteration: int):
                          iteration=iteration)
 
 
-def _no_checkpoints(est, checkpoint_dir, resume) -> None:
-    """Fit checkpoints are not ported yet: asking for one raises rather than
-    fitting without it."""
-    if checkpoint_dir is not None or resume is not None:
-        raise NotImplementedError(
-            f"{type(est).__name__}.fit: checkpoint_dir/resume need the fit "
-            f"checkpoints, which are not ported yet (ROADMAP.md §1 item 5)")
-
-
 def _host(v) -> np.ndarray:
     """A DsArray, tensor or array-like as a host NumPy array."""
     if isinstance(v, DsArray):
@@ -60,6 +57,84 @@ def _host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+# ---------------------------------------------------------------------------
+# Fitted-state (de)serialization over the trailing-underscore convention
+# ---------------------------------------------------------------------------
+#
+# A fitted estimator's state is exactly its ``name_`` attributes.  Packing
+# splits that dict into arrays (checkpoint leaves) and JSON-able metadata
+# (the manifest's ``extra``): scalars inline, DsArray fields as collected
+# arrays + blocking so load rebuilds the distributed layout.  The same pair
+# backs ``save_model``/``load_model`` and the per-iteration fit checkpoints
+# (``_FitCheckpoint``): one wire format, the reference's.
+
+MODEL_FORMAT = "repro-model-v1"
+
+
+def _pack_state(state: Dict[str, Any]) -> Tuple[Dict[str, Any], dict]:
+    """(arrays, meta).  Tensors stay tensors here: ``checkpoint.save``
+    copies them to the host, 64-bit ones narrowed to 32 bits as the
+    reference's device arrays are; NumPy arrays are written as they are."""
+    arrays: Dict[str, Any] = {}
+    meta: dict = {"scalars": {}, "arrays": [], "ds": {}}
+    for k, v in state.items():
+        if isinstance(v, np.generic):
+            v = v.item()
+        if isinstance(v, DsArray):
+            meta["ds"][k] = {"block_shape": list(v.block_shape),
+                             "sparse": bool(v.is_sparse)}
+            arrays[k] = v.collect()
+        elif isinstance(v, (np.ndarray, torch.Tensor)):
+            meta["arrays"].append(k)
+            arrays[k] = v
+        elif isinstance(v, (bool, int, float, str)) or v is None:
+            meta["scalars"][k] = v
+        else:
+            raise TypeError(
+                f"cannot serialize fitted field {k!r} of type "
+                f"{type(v).__name__}; supported: scalars, arrays, DsArray")
+    return arrays, meta
+
+
+def _unpack_state(arrays: Dict[str, torch.Tensor], meta: dict,
+                  device="cuda") -> Dict[str, Any]:
+    """The fitted state back: array fields as tensors on ``device`` (32-bit,
+    as the reference's ``jnp.asarray`` gives them), DsArray fields blocked
+    as they were saved."""
+    out: Dict[str, Any] = dict(meta["scalars"])
+    for k in meta["arrays"]:
+        out[k] = arrays[k].to(device)
+    for k, info in meta["ds"].items():
+        a = from_array(arrays[k], tuple(info["block_shape"]), device=device)
+        if info["sparse"]:
+            a = a.tosparse()
+        out[k] = a
+    return out
+
+
+def _manifest_protos(root: str, step: int) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors of each leaf's recorded shape and dtype: restore
+    protos that cost no memory."""
+    d = os.path.join(root, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    like = {}
+    for e in man["leaves"]:
+        dt = torch.bfloat16 if e["dtype"] == "bfloat16" else \
+            torch.from_numpy(np.zeros(0, np.dtype(e["dtype"]))).dtype
+        like[e["path"]] = torch.empty(tuple(e["shape"]), dtype=dt,
+                                      device="meta")
+    return like
+
+
+def _load_arrays(root: str, step: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """Restore a flat name->array checkpoint WITHOUT caller-side protos:
+    the ``like`` tree is rebuilt from the manifest's recorded shapes and
+    dtypes (so no ``allow_cast`` is needed)."""
+    return _ckpt.restore(root, step, _manifest_protos(root, step),
+                         device=device)
 
 
 def resolve_estimator(name: str) -> type:
@@ -75,6 +150,41 @@ def resolve_estimator(name: str) -> type:
     if not (isinstance(klass, type) and issubclass(klass, BaseEstimator)):
         raise KeyError(f"unknown estimator {name!r}")
     return klass
+
+
+class _FitCheckpoint:
+    """Per-outer-iteration fit state in the ``checkpoint`` layout.
+
+    ``save(it, state)`` commits atomically (step == iteration), so a crash
+    mid-write leaves the previous committed iteration as the newest;
+    ``load(device=...)`` returns ``(iteration, state)`` for the newest
+    committed state, or None when the directory holds none (a fresh start).
+    The estimator name is recorded and checked, so resuming a CSVM fit from
+    an ALS directory fails loudly.
+    """
+
+    def __init__(self, directory: str, estimator: str):
+        self.directory = directory
+        self.estimator = estimator
+
+    def save(self, iteration: int, state: Dict[str, Any]) -> None:
+        arrays, meta = _pack_state(state)
+        _ckpt.save(self.directory, iteration, arrays,
+                   extra={"format": MODEL_FORMAT, "estimator": self.estimator,
+                          "iteration": iteration, "state": meta})
+
+    def load(self, iteration: Optional[int] = None, device="cuda"):
+        it = iteration if iteration is not None \
+            else _ckpt.latest_step(self.directory)
+        if it is None:
+            return None
+        extra = _ckpt.manifest_extra(self.directory, it)
+        if extra.get("estimator") != self.estimator:
+            raise ValueError(
+                f"resume directory {self.directory!r} holds "
+                f"{extra.get('estimator')!r} state, not {self.estimator!r}")
+        return it, _unpack_state(_load_arrays(self.directory, it, device),
+                                 extra["state"], device)
 
 
 @dataclasses.dataclass
@@ -104,6 +214,76 @@ class BaseEstimator:
                     f"{type(self).__name__}; valid: {sorted(valid)}")
             setattr(self, name, value)
         return self
+
+    # -- model (de)serialization ---------------------------------------------
+    def _fitted_state(self) -> Dict[str, Any]:
+        """The trailing-underscore attributes (declared fields AND ones set
+        during fit, e.g. ``classes_`` from ``_encode_labels``)."""
+        return {k: v for k, v in vars(self).items()
+                if k.endswith("_") and not k.startswith("_")}
+
+    def _is_fitted(self, fitted: Optional[Dict[str, Any]] = None) -> bool:
+        """Fitted means some trailing-underscore attribute moved off its
+        declared dataclass default (unfitted estimators still carry
+        non-None scalar defaults like ``intercept_ = 0.0``)."""
+        if fitted is None:
+            fitted = self._fitted_state()
+        defaults = {f.name: f.default for f in dataclasses.fields(self)
+                    if f.default is not dataclasses.MISSING}
+        for k, v in fitted.items():
+            if v is None:
+                continue
+            if isinstance(v, (bool, int, float, str)) and k in defaults \
+                    and v == defaults[k]:
+                continue
+            return True
+        return False
+
+    def save_model(self, directory: str, version: int = 0) -> str:
+        """Persist params + fitted state through ``repro_torch.checkpoint``
+        (atomic commit) in the reference's ``repro-model-v1`` format.  The
+        manifest records the estimator class, so ``estimators.load_model``
+        reconstructs the model without knowing its type; ``version`` is the
+        checkpoint step, so one directory holds a version history."""
+        fitted = self._fitted_state()
+        if not self._is_fitted(fitted):
+            raise NotFittedError(
+                f"{type(self).__name__}: nothing fitted to save")
+        arrays, meta = _pack_state(fitted)
+        return _ckpt.save(
+            directory, version, arrays,
+            extra={"format": MODEL_FORMAT,
+                   "estimator": type(self).__name__,
+                   "version": version,
+                   "params": self.get_params(), "state": meta})
+
+    @classmethod
+    def load_model(cls, directory: str, version: Optional[int] = None,
+                   device="cuda") -> "BaseEstimator":
+        """Reconstruct a fitted estimator saved by ``save_model`` (of either
+        package), its fitted arrays on ``device``.  Call on the concrete
+        class (checked against the manifest) or on ``BaseEstimator`` / via
+        ``estimators.load_model`` to dispatch on the recorded class name.
+        ``version=None`` loads the newest committed version."""
+        step = version if version is not None \
+            else _ckpt.latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no model checkpoint in {directory!r}")
+        extra = _ckpt.manifest_extra(directory, step)
+        name = extra.get("estimator")
+        if cls is BaseEstimator:
+            klass = resolve_estimator(name)
+        else:
+            if name != cls.__name__:
+                raise ValueError(
+                    f"{directory!r} holds a {name!r} model, not "
+                    f"{cls.__name__}")
+            klass = cls
+        est = klass(**extra["params"])
+        for k, v in _unpack_state(_load_arrays(directory, step, device),
+                                  extra["state"], device).items():
+            setattr(est, k, v)
+        return est
 
     @staticmethod
     def _driver_scope():

@@ -40,8 +40,8 @@ import torch
 from repro_torch.core import sparse as sparse_mod
 from repro_torch.core.blocking import ceil_div
 from repro_torch.core.dsarray import DsArray, from_array
-from repro_torch.estimators.base import (BaseClassifier, _iter_span,
-                                         _no_checkpoints)
+from repro_torch.estimators.base import (BaseClassifier, _FitCheckpoint,
+                                         _fire, _iter_span)
 
 _SV_EPS = 1e-6           # dual weight below which a vector is not an SV
 _POWER_ITERS = 12        # power iterations for the step size
@@ -231,19 +231,25 @@ class CascadeSVM(BaseClassifier):
     # -- fit -----------------------------------------------------------------
     def fit(self, x, y, checkpoint_dir: Optional[str] = None,
             resume: Optional[str] = None) -> "CascadeSVM":
-        """Fit the cascade.  ``checkpoint_dir``/``resume`` (the reference's
-        per-iteration fit checkpoints) are not ported yet and raise."""
-        _no_checkpoints(self, checkpoint_dir, resume)
+        """Fit the cascade.  ``checkpoint_dir`` commits the full
+        cross-iteration state (feedback SVs, convergence trackers, fitted
+        snapshot) after every outer iteration; ``resume`` restarts from the
+        newest committed iteration in that directory.  A fit killed at
+        cascade iteration k and resumed this way equals the uninterrupted
+        fit (the per-chunk solves are deterministic functions of x, y and
+        the feedback state)."""
         with self._driver_scope():
-            return self._fit(x, y)
+            return self._fit(x, y, checkpoint_dir, resume)
 
-    def _fit(self, x, y) -> "CascadeSVM":
+    def _fit(self, x, y, checkpoint_dir: Optional[str],
+             resume: Optional[str]) -> "CascadeSVM":
         if self.kernel not in ("rbf", "linear"):
             raise ValueError(f"unknown kernel {self.kernel!r}")
         x, y_raw = self._validate_fit(x, y)
         x = x.ensure_zero_pad()
         yi = self._encode_labels(y_raw, n_classes=2)
         dev = x.device
+        name = type(self).__name__
         ypm = torch.as_tensor((2.0 * yi - 1.0).astype(np.float32), device=dev)
         n, m = x.shape
         cap = self.sv_cap
@@ -258,7 +264,26 @@ class CascadeSVM(BaseClassifier):
         fb_mult = torch.zeros((cap,), dtype=torch.float32, device=dev)
         prev_obj = math.inf
         self.converged_ = False
-        for it in range(1, self.max_iter + 1):
+        start_it = 1
+        if resume is not None:
+            got = _FitCheckpoint(resume, name).load(device=dev)
+            if got is not None:
+                it0, st = got
+                fb_rows, fb_y, fb_mult = st["fb_rows"], st["fb_y"], st["fb_mult"]
+                prev_obj = float(st["prev_obj"])
+                self.sv_, self.sv_y_ = st["sv"], st["sv_y"]
+                self.dual_coef_ = st["dual_coef"]
+                self.intercept_ = float(st["intercept"])
+                self.n_sv_ = int(st["n_sv"])
+                self.n_iter_ = int(st["n_iter"])
+                self.converged_ = bool(st["converged"])
+                if self.converged_:
+                    return self
+                start_it = it0 + 1
+        ckpt = _FitCheckpoint(checkpoint_dir, name) \
+            if checkpoint_dir is not None else None
+        for it in range(start_it, self.max_iter + 1):
+            _fire("fit_iteration", estimator=name, iteration=it)
             with _iter_span(self, it):
                 # level 0: every chunk (data, multiplicity 1 each) + the
                 # fed-back global SV slot (model copies; static cap); each
@@ -300,9 +325,22 @@ class CascadeSVM(BaseClassifier):
                 if math.isfinite(prev_obj) and \
                         abs(prev_obj - obj) <= self.tol * max(1.0, abs(prev_obj)):
                     self.converged_ = True
+                else:
+                    prev_obj = obj
+                    fb_rows, fb_y, fb_mult = rows, yy, mm
+                if ckpt is not None:
+                    # commit AFTER the state advance, so the newest committed
+                    # iteration fully determines every later one
+                    ckpt.save(it, {
+                        "fb_rows": fb_rows, "fb_y": fb_y, "fb_mult": fb_mult,
+                        "prev_obj": float(prev_obj),
+                        "sv": self.sv_, "sv_y": self.sv_y_,
+                        "dual_coef": self.dual_coef_,
+                        "intercept": float(self.intercept_),
+                        "n_sv": int(self.n_sv_), "n_iter": int(self.n_iter_),
+                        "converged": bool(self.converged_)})
+                if self.converged_:
                     break
-                prev_obj = obj
-                fb_rows, fb_y, fb_mult = rows, yy, mm
         return self
 
     # -- inference -----------------------------------------------------------

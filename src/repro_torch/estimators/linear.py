@@ -28,7 +28,7 @@ import torch
 from repro_torch.core import expr as _expr
 from repro_torch.core import plan
 from repro_torch.core.dsarray import DsArray, from_array
-from repro_torch.estimators.base import BaseRegressor
+from repro_torch.estimators.base import BaseRegressor, _host
 from repro_torch.resilience.guards import (NumericalDivergence,
                                            require_finite_host)
 
@@ -196,7 +196,7 @@ class LinearRegression(BaseRegressor):
         w = cache.get(key)
         if w is None:
             cache.clear()                    # one fit, one blocking at a time
-            w = from_array(np.asarray(self.coef_, np.float32).reshape(-1, 1),
+            w = from_array(_host(self.coef_).astype(np.float32).reshape(-1, 1),
                            (block_cols, 1), device=device)
             cache[key] = w
         return w

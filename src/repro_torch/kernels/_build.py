@@ -5,7 +5,9 @@ C interface, ``build/repro_torch_kernels/<hash>/lib<name>.so`` under the
 checkout root, where ``<hash>`` covers every source and the flags, so an
 edited source builds anew and an unchanged one is reused.  All sources are
 compiled at first use, one nvcc process each, started together.  A failed
-build raises with nvcc's stderr.  Nothing here runs at import time.
+build raises :class:`KernelError` with nvcc's stderr; the kernel wrappers
+raise it too when a launch returns a CUDA error.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch.  Deterministic: the same call
+    fails again, so ``resilience.run_resilient`` neither retries it nor
+    degrades past it."""
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,7 +53,7 @@ def _build_dir() -> Path:
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+        raise KernelError("no CUDA toolkit found: nvcc is needed to build "
                            "the repro_torch kernels")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
@@ -80,7 +88,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             lib.with_suffix(".log").write_text(BUILD_LOGS[name])
             os.replace(tmp, lib)
         if errors:
-            raise RuntimeError("\n".join(errors))
+            raise KernelError("\n".join(errors))
         for src in _sources():
             if src.stem not in _libs:
                 _libs[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))

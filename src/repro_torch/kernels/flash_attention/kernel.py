@@ -102,8 +102,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(window), int(q_offset), kv, float(sm_scale), float(softcap),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention ({r}) launch failed with cudaError "
-                           f"{err}")
+        raise _build.KernelError(f"flash_attention ({r}) launch failed with "
+                                 f"cudaError {err}")
     flash_attention.launches += 1
     flash_attention.route_launches[r] += 1
     return out

@@ -177,7 +177,8 @@ def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor, n: int):
             gn, gm, bn, bm, n, k, plan.tile_rows, plan.chunk,
             int(plan.smem_partial), plan.d_slice, label_blocks, nblocks, stream)
     if err != 0:
-        raise RuntimeError(f"kmeans_assign ({r}) launch failed with cudaError {err}")
+        raise _build.KernelError(f"kmeans_assign ({r}) launch failed with "
+                                 f"cudaError {err}")
     kmeans_assign_stacked.launches += 1
     kmeans_assign_stacked.route_launches[r] += 1
     return labels, sums, counts

@@ -6,7 +6,13 @@ tensors to the plain version.  ``plan`` picks the route before the launch:
 can read, ``"simt"`` (IEEE fp32 FMAs, any strides) for everything else.
 That is dispatch by shape: nothing is retried, and a failed launch raises.
 ``stacked_matmul.launches`` counts the calls that launched a kernel,
-``stacked_matmul.route_launches`` the same calls by route.
+``stacked_matmul.route_launches`` the same calls by route, and
+``stacked_matmul.max_workspace`` is the largest split-K workspace (bytes)
+a launch allocated.  ``low_memory=True`` (the resilience ladder's last
+rung) holds that workspace within :data:`LOW_MEMORY_WORKSPACE` instead of
+:data:`WORKSPACE`; it still splits a deep K that way where the output is
+small, since one split sums the whole of K in one fp32 register per
+output element.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ WGMMA_TILE = (128, 128, 64)
 SIMT_TILE = (128, 128, 16)
 ROUTES = ("wgmma", "simt")
 _TMA_ALIGN = 16           # bytes: TMA's base alignment and stride granule
+#: the split-K workspace's cap (bytes), and the cap of the low-memory form
+WORKSPACE = 256 << 20
+LOW_MEMORY_WORKSPACE = 4 << 20
 
 _c_ll = ctypes.c_longlong
 _SIMT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [_c_ll] * 8
@@ -65,15 +74,16 @@ def _launcher(name: str, argtypes):
     return fn
 
 
-def split_count(tiles: int, k_steps: int, out_elems: int, sms: int) -> int:
+def split_count(tiles: int, k_steps: int, out_elems: int, sms: int,
+                workspace: int = WORKSPACE) -> int:
     """How many K splits to run: 1 when the output tiles alone fill the card;
     else enough to give ~4 blocks per SM, keeping >= 64 K steps per split
-    and the fp32 workspace within 256 MiB."""
+    and the fp32 workspace within ``workspace`` bytes."""
     if tiles >= 2 * sms:
         return 1
     want = ceil_div(4 * sms, tiles)
     by_depth = max(1, k_steps // 64)
-    by_workspace = max(1, (64 << 20) // max(1, out_elems))
+    by_workspace = max(1, workspace // 4 // max(1, out_elems))
     return max(1, min(want, by_depth, by_workspace, 65535))
 
 
@@ -107,10 +117,12 @@ def tma_operand(t: torch.Tensor, k_dim: int, mn_dim: int,
     return None
 
 
-def plan(av: torch.Tensor, b: torch.Tensor, sms: int) -> GemmPlan:
+def plan(av: torch.Tensor, b: torch.Tensor, sms: int,
+         workspace: int = WORKSPACE) -> GemmPlan:
     """The route, tile, split count and (wgmma) operand maps of the product
     of ``av`` viewed as ``(gi, gk, bn, bk)`` and ``b`` as ``(gk, gj, bk,
-    bm)`` on a card of ``sms`` SMs."""
+    bm)`` on a card of ``sms`` SMs, its split-K workspace within
+    ``workspace`` bytes."""
     gi, gk, bn, bk = av.shape
     gj, bm = b.shape[1], b.shape[3]
     a_op = b_op = None
@@ -120,7 +132,8 @@ def plan(av: torch.Tensor, b: torch.Tensor, sms: int) -> GemmPlan:
     wgmma = a_op is not None and b_op is not None
     rows, cols, depth = WGMMA_TILE if wgmma else SIMT_TILE
     tiles = gi * gj * ceil_div(bn, rows) * ceil_div(bm, cols)
-    splits = split_count(tiles, gk * ceil_div(bk, depth), gi * gj * bn * bm, sms)
+    splits = split_count(tiles, gk * ceil_div(bk, depth), gi * gj * bn * bm, sms,
+                         workspace)
     if wgmma:
         return GemmPlan("wgmma", (rows, cols, depth), splits, a_op, b_op)
     return GemmPlan("simt", (rows, cols, depth), splits)
@@ -131,11 +144,14 @@ def _map_array(op: TmaOperand):
 
 
 def stacked_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype,
-                   transpose_a: bool = False) -> torch.Tensor:
+                   transpose_a: bool = False,
+                   low_memory: bool = False) -> torch.Tensor:
     """``(gi, gk, bn, bk) x (gk, gj, bk, bm) -> (gi, gj, bn, bm)`` on the
     card; ``transpose_a=True`` takes ``a`` as ``(gk, gi, bk, bn)`` and reads
     it transposed through its strides (no copy).  Any strides are accepted;
-    both operands must share one dtype among f32/f16/bf16."""
+    both operands must share one dtype among f32/f16/bf16.
+    ``low_memory=True`` holds the split-K workspace within
+    :data:`LOW_MEMORY_WORKSPACE`."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"stacked_matmul wants CUDA tensors on one device, "
                          f"got {a.device} and {b.device}")
@@ -158,7 +174,7 @@ def stacked_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype,
     if gk * bk == 0:
         return out.zero_()
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    p = plan(av, b, sms)
+    p = plan(av, b, sms, LOW_MEMORY_WORKSPACE if low_memory else WORKSPACE)
     ws = (torch.empty((p.splits,) + tuple(out.shape), dtype=torch.float32,
                       device=a.device) if p.splits > 1 else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -174,12 +190,16 @@ def stacked_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype,
         err = _launcher("stacked_matmul_launch", _SIMT_ARGTYPES)(
             *common, *av.stride(), *b.stride(), p.splits, stream)
     if err != 0:
-        raise RuntimeError(f"stacked_matmul ({p.route}) launch failed with "
-                           f"cudaError {err}")
+        raise _build.KernelError(f"stacked_matmul ({p.route}) launch failed "
+                                 f"with cudaError {err}")
     stacked_matmul.launches += 1
     stacked_matmul.route_launches[p.route] += 1
+    if ws is not None:
+        stacked_matmul.max_workspace = max(stacked_matmul.max_workspace,
+                                           ws.numel() * 4)
     return out
 
 
 stacked_matmul.launches = 0
 stacked_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+stacked_matmul.max_workspace = 0

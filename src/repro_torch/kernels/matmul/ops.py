@@ -10,13 +10,26 @@ A CUDA tensor of f32/bf16/f16 launches the CUDA kernel
 A sparse A (``core.sparse.StackedCOO``) takes :func:`sparse_contract`
 instead, on any device: torch ops over the stored entries, never a densify
 of A (a sparse B densifies).  ``gemm.dispatch_cuda`` /
-``gemm.dispatch_plain`` / ``gemm.dispatch_sparse`` count the decisions.
+``gemm.dispatch_plain`` / ``gemm.dispatch_sparse`` count the decisions, and
+each fires the ``gemm_dispatch`` fault-injection site.
+
+Inside :func:`low_memory_gemm` (entered only by ``core.plan``'s
+``execute_eager(backend="einsum")``, the last rung of the resilience
+ladder) a dense product on the card still launches the kernel, with its
+split-K workspace held within ``kernel.LOW_MEMORY_WORKSPACE`` (4 MiB
+against 256 MiB).  That is the port's counterpart of the reference's
+einsum rung (no Pallas accumulator); the plain version stays the CPU's.
+No environment variable chooses the route.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
+from repro_torch._faults import fire as _fire
 from repro_torch.core.sparse import StackedCOO, _acc_dtype, _to_dense_blocks
 from repro_torch.kernels.matmul import kernel
 from repro_torch.kernels.matmul.ref import matmul_ref, stacked_matmul_ref
@@ -27,6 +40,23 @@ __all__ = ["local_matmul", "matmul", "sparse_contract", "stacked_matmul_ref",
 
 _DISPATCHES = _metrics.CounterGroup(
     "gemm", ("dispatch_cuda", "dispatch_plain", "dispatch_sparse"))
+
+# True inside low_memory_gemm(): card GEMMs keep a small split-K workspace
+_LOW_MEMORY = contextvars.ContextVar("repro_torch_low_memory_gemm",
+                                     default=False)
+
+
+@contextlib.contextmanager
+def low_memory_gemm():
+    """Run every dense local GEMM of the block on the card with its split-K
+    workspace in the low-memory cap (the ``einsum`` rung of
+    ``Plan.execute_eager``)."""
+    token = _LOW_MEMORY.set(True)
+    try:
+        yield
+    finally:
+        _LOW_MEMORY.reset(token)
+
 
 # the product rows one chunk of stored entries may gather at once, as a
 # share of the sparse operand's stored bytes (floored at 1 MiB): what keeps
@@ -130,6 +160,7 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         b = _to_dense_blocks(b)         # x @ sp: the right operand densifies
     if isinstance(a, StackedCOO):
         if a.device.type != "meta":
+            _fire("gemm_dispatch", mode="sparse")
             _DISPATCHES.inc("dispatch_sparse")
         return sparse_contract(a, b, out_dtype=out_dtype,
                                transpose_a=transpose_a)
@@ -138,6 +169,7 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         # read, nothing is launched and no dispatch is counted
         return torch.empty((gi, gj, bn, bm), dtype=out_dtype, device="meta")
     if a.device.type == "cpu":
+        _fire("gemm_dispatch", mode="plain")
         _DISPATCHES.inc("dispatch_plain")
         return stacked_matmul_ref(a, b, out_dtype=out_dtype,
                                   transpose_a=transpose_a)
@@ -147,9 +179,11 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         raise TypeError(f"the CUDA GEMM takes f32/bf16/f16, got {a.dtype} x "
                         f"{b.dtype}")
     common = torch.promote_types(a.dtype, b.dtype)
+    _fire("gemm_dispatch", mode="cuda")
     _DISPATCHES.inc("dispatch_cuda")
     return kernel.stacked_matmul(a.to(common), b.to(common),
-                                 out_dtype=out_dtype, transpose_a=transpose_a)
+                                 out_dtype=out_dtype, transpose_a=transpose_a,
+                                 low_memory=_LOW_MEMORY.get())
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Tensor:

@@ -96,7 +96,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ctypes.addressof(strides), bh, t, p, s, chunk, bh // bg,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_chunk ({r}) launch failed with cudaError {err}")
+        raise _build.KernelError(f"ssd_chunk ({r}) launch failed with cudaError {err}")
     ssd_chunk.launches += 1
     ssd_chunk.route_launches[r] += 1
     return y, states, c_dec, decay

@@ -5,9 +5,11 @@ singleton, so an instrumented site pays a single flag check.  When enabled,
 each ``with span(name, **attrs):`` block records one Chrome trace-event
 "complete" record (``ph: "X"``, microsecond ``ts``/``dur``) into a locked
 buffer; :func:`recording` hands back the events of its block.  Span names used by the port:
-``fit.loop`` (a whole Lloyd loop), ``fit.iteration`` (one pass of it),
-``plan.optimize`` (one run of the lazy-plan optimizer) and ``plan.launch``
-(one plan execution, ended after a device sync).
+``fit.loop`` (a whole Lloyd loop), ``fit.iteration`` (one pass of a fit
+loop), ``plan.optimize`` (one run of the lazy-plan optimizer),
+``plan.launch`` (one plan execution, ended after a device sync),
+``resilience.rung`` (one attempt of ``run_resilient``), ``ingest.load`` (one
+loader call) and ``ingest.chunk`` (one parsed chunk of a streaming load).
 A span times the host: a site that wants device time synchronises inside
 the span (the K-means loop does, once per iteration, to test convergence).
 """

@@ -714,3 +714,102 @@ def test_csvm_on_the_card(card, kernel, sparse):
     firm = np.abs(decs[1]) >= 1e-4
     np.testing.assert_array_equal(fits[0][firm], fits[2][firm])
     np.testing.assert_allclose(fits[1], fits[3], atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The durable path: fit resume and streaming ingestion on the card
+# ---------------------------------------------------------------------------
+
+
+def test_kmeans_crash_resume_on_the_card(card, tmp_path):
+    """A K-means fit crashed halfway and resumed from its checkpoint gives
+    the uninterrupted fit's ``n_iter_`` and center bits, as does the
+    checkpointed fit itself; every assignment launches ``kmeans_assign``."""
+    import repro_torch as pt
+    import repro_torch.resilience as R
+    from repro_torch.algorithms import KMeans
+    x, _, _ = _est_data(6, n=20000)
+    xd = _on(x, (4096, x.shape[1]), card)
+    kw = dict(n_clusters=8, max_iter=8, tol=0.0, seed=3)
+    before = kk.kmeans_assign_stacked.launches
+    ref = KMeans(**kw).fit(xd)
+    assert kk.kmeans_assign_stacked.launches - before == ref.n_iter_ >= 3
+    ck = KMeans(**kw).fit(xd, checkpoint_dir=str(tmp_path / "full"))
+    assert torch.equal(ck.centers_, ref.centers_)
+    d = str(tmp_path / "crash")
+    with R.inject(R.FaultSpec(kind="crash", site="fit_iteration",
+                              where={"iteration": max(2, ref.n_iter_ // 2)})):
+        with pytest.raises(R.CrashError):
+            KMeans(**kw).fit(xd, checkpoint_dir=d)
+    resumed = KMeans(**kw).fit(xd, checkpoint_dir=d, resume=d)
+    assert resumed.n_iter_ == ref.n_iter_
+    assert torch.equal(resumed.centers_, ref.centers_)
+    back = pt.load_model(_saved(ref, tmp_path / "model"), device=card)
+    assert torch.equal(back.predict(xd).blocks, ref.predict(xd).blocks)
+
+
+def _saved(est, path):
+    est.save_model(str(path))
+    return str(path)
+
+
+def test_npy_load_fault_mid_stream_frees_the_card(card, tmp_path):
+    """An ``io_load`` fault at block row 3 of a ``.npy`` load raises
+    ``IOLoadError`` and leaves ``memory_allocated`` where it was; the load
+    then gives the file's bits."""
+    import gc
+    import repro_torch.resilience as R
+    from repro_torch.core import io as rio
+    arr = np.random.default_rng(7).normal(size=(10000, 48)).astype(np.float32)
+    p = str(tmp_path / "x.npy")
+    np.save(p, arr)
+    gc.collect()                      # earlier tests' garbage, before the base
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    raised = False
+    try:
+        with R.inject(R.FaultSpec(kind="io", site="io_load",
+                                  where={"source": "load_npy_rows",
+                                         "block_row": 3})):
+            rio.load_npy_rows(p, (1024, 48), device=card)
+    except R.IOLoadError:
+        raised = True
+    gc.collect()
+    assert raised
+    assert torch.cuda.memory_allocated() == base
+    got = rio.load_npy_rows(p, (1024, 48), device=card)
+    assert torch.equal(got.collect().cpu(), torch.from_numpy(arr))
+
+
+def test_einsum_rung_keeps_the_kernel_in_low_memory(card):
+    """The ladder's last rung on the card launches ``stacked_matmul`` with
+    its split-K workspace within the low-memory cap where the fused run's
+    passes it; it never takes the plain version, and both results are
+    within the GEMM limit of float64."""
+    import repro_torch as pt
+    import repro_torch.resilience as R
+    from repro_torch.obs import registry
+    rng = np.random.default_rng(11)
+    x = pt.from_array(rng.normal(size=(65536, 256)).astype(np.float32),
+                      (8192, 256), device=card)
+    chain = x.lazy().T @ x               # four 128² tiles, K = 65,536: split-K
+    mk.stacked_matmul.max_workspace = 0
+    fused = pt.compute(chain)
+    assert mk.stacked_matmul.max_workspace > mk.LOW_MEMORY_WORKSPACE
+    mk.stacked_matmul.max_workspace = 0
+    n = mk.stacked_matmul.launches
+    plain = registry.snapshot("gemm")["gemm.dispatch_plain"]
+    R.reset_stats()
+    with R.inject(R.FaultSpec(kind="oom", site="plan_execute",
+                              modes=("fused", "eager"), times=None)):
+        low = R.run_resilient(chain)
+    assert R.stats()["degradations"] == 2
+    assert mk.stacked_matmul.launches > n
+    assert 0 < mk.stacked_matmul.max_workspace <= mk.LOW_MEMORY_WORKSPACE
+    assert registry.snapshot("gemm")["gemm.dispatch_plain"] == plain
+    ref = x.collect().double().T @ x.collect().double()
+    rms = float(ref.pow(2).mean().sqrt())
+    atol = 8 * torch.finfo(torch.float32).eps * 65536 ** 0.5 * rms
+    for got in (fused, low):
+        torch.testing.assert_close(got.collect().double(), ref, atol=atol,
+                                   rtol=torch.finfo(torch.float32).eps)

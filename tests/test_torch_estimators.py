@@ -289,14 +289,25 @@ def test_validation_rejects_bad_inputs():
 
 
 def test_checkpoint_arguments_raise_until_ported(tmp_path):
-    """``checkpoint_dir``/``resume`` are refused, never ignored."""
+    """``checkpoint_dir``/``resume`` are honoured, never ignored (they
+    raised ``NotImplementedError`` until the fit checkpoints were ported):
+    a checkpointed fit commits one step per iteration and equals the plain
+    fit; resuming from an empty directory is a fresh fit."""
+    from repro_torch.checkpoint import list_steps
     x, y = two_blobs()
-    for fit in (lambda **kw: CascadeSVM(max_iter=1).fit(ds(x, (32, 4)), y, **kw),
-                lambda **kw: ALS(max_iter=1).fit(ds(low_rank_ratings(), (16, 8)),
-                                                 **kw)):
-        for kw in ({"checkpoint_dir": str(tmp_path)}, {"resume": str(tmp_path)}):
-            with pytest.raises(NotImplementedError, match="item 5"):
-                fit(**kw)
+    for name, fit, fitted in (
+            ("svm", lambda **kw: CascadeSVM(max_iter=2).fit(ds(x, (32, 4)), y, **kw),
+             lambda e: e.sv_),
+            ("als", lambda **kw: ALS(max_iter=2).fit(ds(low_rank_ratings(), (16, 8)),
+                                                     **kw),
+             lambda e: e.u_.blocks)):
+        plain = fit()
+        d = str(tmp_path / name)
+        for kw in ({"checkpoint_dir": d}, {"resume": str(tmp_path / "empty")}):
+            got = fit(**kw)
+            assert got.n_iter_ == plain.n_iter_
+            assert torch.equal(fitted(got), fitted(plain))
+        assert list_steps(d) == list(range(1, plain.n_iter_ + 1))
 
 
 def test_resolve_estimator_and_shared_base():

@@ -71,6 +71,31 @@ CascadeSVM(sv_cap=8, max_iter=2, solver_iters=20).fit(xd, labels).predict(xd)
 RandomForestClassifier(n_estimators=2, max_depth=3).fit(xd, labels).predict(xd)
 repro_torch.launch.serve.main(["--smoke", "--device", "cpu", "--batch", "1",
                                "--prompt-len", "3", "--gen", "2"])
+import os, tempfile
+import repro_torch.checkpoint
+import repro_torch.core.io
+import repro_torch.core.readers
+import repro_torch.resilience
+import repro_torch.resilience.execute
+import repro_torch.resilience.guards
+import repro_torch.resilience.inject
+from repro_torch.estimators import load_model
+d = tempfile.mkdtemp()
+km.save_model(os.path.join(d, "m"))
+load_model(os.path.join(d, "m"), device="cpu").predict(x)
+KMeans(n_clusters=2, max_iter=3).fit(x, checkpoint_dir=os.path.join(d, "c"),
+                                     resume=os.path.join(d, "c"))
+np.save(os.path.join(d, "x.npy"), xs)
+repro_torch.core.io.load_npy_rows(os.path.join(d, "x.npy"), (16, 4),
+                                  device="cpu")
+np.savetxt(os.path.join(d, "x.txt"), xs, delimiter=",")
+repro_torch.core.io.load_txt_file(os.path.join(d, "x.txt"), (16, 4),
+                                  device="cpu")
+R = repro_torch.resilience
+with R.inject(R.FaultSpec(kind="oom", site="plan_execute",
+                          modes=("fused", "eager"), times=None)):
+    R.run_resilient(xd.lazy() @ xd.T, guard="finite")
+xd.finite_report()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(loaded)
