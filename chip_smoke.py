@@ -195,6 +195,37 @@ raises and the script exits non-zero):
     ``oom`` with the next allocation fine, NaN poisoned into block (1, 2)
     under ``guard="finite"`` (``NumericalDivergence`` naming it), and the
     clean result's ``finite_report``.
+12. the predict server and the plan profiler (at most 45 s), each step's
+    launch counts zeroed before and read after: ``Ridge(alpha=0.1)`` fitted
+    on 131,072 x 4,096 f32 rows from ``--seed`` (blocks 16,384 x 4,096;
+    ``benchmarks/bench_serve.py``'s width), saved with ``save_model`` and
+    loaded back as version 2 by ``ModelRegistry(device="cuda").load``, and
+    phase 4's ``KMeans(64)`` registered eagerly; buckets (1, 8, 32, 128),
+    block rows 128, dense and stacked COO at density 0.01 (``nse`` 20,971).
+    The first request of a cold registry (``warm=False``, plan cache
+    cleared) against a warm one; streams of 64 requests per model, format
+    and bucket, each submitted, pumped and awaited in turn (p50/p99 µs,
+    requests/s, launches per request); 4 client threads x 32 requests of
+    1-8 rows against the started server.  Checks, each with a wrong answer
+    that must fail: every served result is the bits of ``predict`` on its
+    padded bucket batch, a lone row the bits of a direct predict, every
+    Ridge result within the GEMM limit of float64, K-means labels the
+    float64 argmin up to near-ties; the steady state (``opt_runs``,
+    ``misses`` and ``aot_compiles`` frozen, ``cache_hits`` the plan
+    requests, no shed, fallback, retry or failure); every dense request one
+    ``stacked_matmul`` on the card (no plain GEMM), every K-means request
+    one ``kmeans_assign`` on the mma route; an injected ``serve_dispatch``
+    transient bumps exactly ``dispatch_retries`` and a crash of every
+    batched dispatch exactly ``batch_sheds``, its requests served with the
+    bits of a direct predict.  The device's busy share over the 128-row
+    dense stream (``torch.profiler``); the served product alone beside its
+    bound, its plain version and ``torch.matmul``; ``obs.profile`` of phase
+    6's fused chain at 8192² f32, of the served 128-row Ridge plan and of
+    an elementwise chain on a 128-row stacked COO batch, every node's
+    measured bytes the cost model's (a law off by 2x must drift), the
+    per-node sum against the fused run and the run's memory; and, in child
+    processes (``--serve-first``), the seconds from ``import repro_torch``
+    to the first response, registered cold and warm.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -1601,7 +1632,7 @@ KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
 
 
-def device_profile(torch, fn, what: str):
+def device_profile(torch, fn, what: str, tag: str = "[8]"):
     """Runs ``fn`` once under ``torch.profiler`` and prints the device time
     of its kernels by group (the port's kernels, cuBLAS, the rest of the
     torch ops), the top kernels, and the device's busy share of the
@@ -1624,7 +1655,7 @@ def device_profile(torch, fn, what: str):
                and e.self_device_time_total > 0]
     busy = sum(ms for _, _, ms in kernels)
     if not kernels:
-        print(f"[8] profile {what}: the profiler recorded no device time: not measured")
+        print(f"{tag} profile {what}: the profiler recorded no device time: not measured")
         return {"what": what, "wall_ms": wall_ms, "busy_ms": None}
     groups = {}
     for name, count, ms in kernels:
@@ -1633,12 +1664,12 @@ def device_profile(torch, fn, what: str):
         n, t = groups.get(group, (0, 0.0))
         groups[group] = (n + count, t + ms)
     top = sorted(kernels, key=lambda k: -k[2])[:6]
-    print(f"[8] profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
+    print(f"{tag} profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
           f"device busy {busy:.3f} ms ({busy / wall_ms:.3f} of it); by group: "
           + "; ".join(f"{g} {t:.3f} ms in {n} launches" for g, (n, t) in
                       sorted(groups.items(), key=lambda kv: -kv[1][1])), flush=True)
     for name, count, ms in top:
-        print(f"[8]   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
+        print(f"{tag}   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
     return {"what": what, "wall_ms": wall_ms, "busy_ms": busy,
             "groups": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()}}
 
@@ -2492,17 +2523,18 @@ VAR_RTOL = 1e-4
 
 
 class Checks:
-    """Phase 10's checks: each result beside its limit, failures gathered
-    and raised together at the end of the phase (so one run prints every
-    number)."""
+    """Phases 10 and 12's checks: each result beside its limit, failures
+    gathered and raised together at the end of the phase (so one run prints
+    every number)."""
 
-    def __init__(self):
+    def __init__(self, tag: str = "[10]"):
         self.failed = []
+        self.tag = tag
 
     def __call__(self, cond, msg: str) -> None:
         if not cond:
             self.failed.append(msg)
-            print(f"[10] FAILED: {msg}", flush=True)
+            print(f"{self.tag} FAILED: {msg}", flush=True)
 
     def control(self, fails, what: str) -> None:
         self(fails, f"control '{what}' passed its check")
@@ -3507,11 +3539,513 @@ def phase_durable(torch, smi, fitted, km, A, B, sparse):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the predict server and the plan profiler
+# ---------------------------------------------------------------------------
+
+SERVE_ROWS, SERVE_FEATURES = 131_072, 4_096      # bench_serve.py's width
+SERVE_BLOCK = (16_384, SERVE_FEATURES)
+SERVE_BATCHES = (1, 8, 32, 128)                  # bench_serve.py:35-38
+SERVE_BLOCK_ROWS = 128
+SERVE_DENSITY = 0.01
+SERVE_NSE = max(64, int(SERVE_BLOCK_ROWS * SERVE_FEATURES * SERVE_DENSITY * 4))
+SERVE_STREAM = 64                                # requests per stream
+SERVE_CLIENTS, SERVE_CLIENT_REQUESTS = 4, 32
+SERVE_SPEC = {"batch_sizes": SERVE_BATCHES, "block_rows": SERVE_BLOCK_ROWS,
+              "formats": ("dense", "bcoo"), "nse": SERVE_NSE}
+
+
+def serve_payload(rng, fmt: str, rows: int, centers=None):
+    """One request: ``rows`` x SERVE_FEATURES normal rows, or the same at
+    SERVE_DENSITY as a CSR matrix; with ``centers``, K-means rows (a center
+    plus unit noise)."""
+    import numpy as np
+    import scipy.sparse as ssp
+    if centers is not None:
+        pick = rng.integers(0, centers.shape[0], rows)
+        return (centers[pick] + rng.normal(size=(rows, centers.shape[1]))
+                ).astype(np.float32)
+    if fmt == "dense":
+        return rng.normal(size=(rows, SERVE_FEATURES)).astype(np.float32)
+    return ssp.random(rows, SERVE_FEATURES, density=SERVE_DENSITY, format="csr",
+                      random_state=rng, dtype=np.float32)
+
+
+def serve_first(mode: str, model_dir: str) -> dict:
+    """``--serve-first`` (a child process of phase 12): seconds from
+    ``import repro_torch`` to the first served response of the saved Ridge,
+    registered with ``warm=True`` or ``warm=False``."""
+    import numpy as np
+    t0 = time.perf_counter()
+    import repro_torch.serve as serve
+    t_import = time.perf_counter()
+    reg = serve.ModelRegistry(device="cuda")
+    reg.load("ridge", model_dir, warm=mode == "warm", **SERVE_SPEC)
+    t_load = time.perf_counter()
+    srv = serve.PredictServer(reg)
+    fut = srv.submit("ridge", np.ones((1, SERVE_FEATURES), np.float32))
+    srv.pump()
+    fut.result()
+    t_first = time.perf_counter()
+    return {"mode": mode, "import_s": t_import - t0, "load_s": t_load - t_import,
+            "first_request_s": t_first - t_load, "total_s": t_first - t0}
+
+
+def steady_faults(cs0, cs1, st, n_plan: int, n_eager: int):
+    """What breaks the steady state between plan counters ``cs0`` and
+    ``cs1`` over a stream whose serve counters are ``st``: a re-optimised
+    or rebuilt plan, a cache miss, a plan request that missed the warmed
+    run, or any shed, fallback, retry or failure."""
+    faults = [f"plan.{k} {cs0[k]} -> {cs1[k]}"
+              for k in ("opt_runs", "misses", "aot_compiles") if cs1[k] != cs0[k]]
+    want = {"requests": n_plan + n_eager, "responses": n_plan + n_eager,
+            "cache_hits": n_plan, "eager_requests": n_eager}
+    faults += [f"{k} {st[k]} (want {v})" for k, v in want.items() if st[k] != v]
+    faults += [f"{k} {st[k]}" for k in ("cache_misses", "failures", "batch_sheds",
+                                        "bucket_fallbacks", "dispatch_retries",
+                                        "single_dispatches") if st[k]]
+    return faults
+
+
+def route_faults(counts, gemms: int, assigns: int):
+    """Launches of one step against the path's: ``gemms`` stacked_matmul
+    launches, all on the card's SIMT route (f32), and ``assigns``
+    kmeans_assign launches, all on the mma route."""
+    want = {"stacked_matmul": gemms, "stacked_matmul/simt": gemms,
+            "kmeans_assign": assigns, "kmeans_assign/mma": assigns}
+    return [f"{k} {counts.get(k, 0)} (want {v})" for k, v in want.items()
+            if counts.get(k, 0) != v] + \
+        [f"{k} {v}" for k, v in counts.items() if k not in want and v]
+
+
+def serve_gemm_case(torch, a, b):
+    """The served product alone, ``(1, 1, 128, 4096) @ (1, 1, 4096, 1)`` f32:
+    the kernel (its route checked) against its plain version, times beside
+    the bound and ``torch.matmul``."""
+    from repro_torch.kernels.matmul import kernel as mk
+    from repro_torch.kernels.matmul.ref import stacked_matmul_ref
+    rows, k = a.shape[2], a.shape[3]
+    label = f"served Ridge product ({rows}x{k}) @ ({k}x1) f32, simt"
+    f32 = torch.float32
+    out = routed(lambda: mk.stacked_matmul(a, b, out_dtype=f32), mk.stacked_matmul,
+                 "simt", label)
+    err = gemm_close(out, stacked_matmul_ref(a.double(), b.double()), k)
+    flops, nbytes = 2.0 * rows * k, 4.0 * (rows * k + k + rows)
+    b_ms, b_by = bound(flops, nbytes, "fp32")
+    a2d, b2d = a[0, 0], b[0, 0]
+    row = {"case": label, "ms": timed(lambda: mk.stacked_matmul(a, b, out_dtype=f32)),
+           "plain_ms": timed(lambda: stacked_matmul_ref(a, b, out_dtype=f32)),
+           "library_ms": timed(lambda: torch.matmul(a2d, b2d)),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
+           "max_abs_err": err}
+    print(f"[12] {label}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, library "
+          f"{row['library_ms']:.4f}, bound {b_ms:.5f} by {b_by})", flush=True)
+    return row
+
+
+def phase_serve(torch, seed, smi, km, A, B):
+    """Phase 12: the predict server over a Ridge at bench_serve.py's width
+    and phase 4's K-means, and the plan profiler on the card; returns the
+    ``stacked_matmul`` / ``kmeans_assign`` launches of its steps by route."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import repro_torch.resilience as R
+    import repro_torch.serve as serve
+    import repro_torch as rt
+    from repro_torch import obs
+    from repro_torch.core import costmodel, plan
+    from repro_torch.estimators import Ridge
+    from repro_torch.serve.batching import assemble
+
+    t_phase = time.perf_counter()
+    rec = {"wall_s": {}, "launches": {}, "added_mb": {}, "rates": {}}
+    ck = Checks("[12]")
+    n, m = SERVE_ROWS, SERVE_FEATURES
+
+    def step(name, fn):
+        """``fn()`` with its launches (counts zeroed before, read after),
+        CUDA-synchronised wall seconds and added peak device memory."""
+        ds_counts(zero=True)
+        out = est_step(torch, rec, name, fn, collect=False)
+        rec["launches"][name] = {k: v for k, v in ds_counts().items() if v}
+        return out
+
+    def say(what):
+        print(f"[12] {what} (card: {smi})", flush=True)
+
+    def plain_gemms():
+        return obs.registry.snapshot("gemm")["gemm.dispatch_plain"]
+
+    def host(t):
+        return t.collect().cpu().numpy()
+
+    def counters():
+        st = dict(serve.stats())
+        st.pop("latency")
+        return st
+
+    # 1. the models ----------------------------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    xs = torch.randn(n, m, generator=gen, device="cuda")
+    w_true = torch.randn(m, generator=gen, device="cuda") / m ** 0.5
+    y = (xs @ w_true + 0.5 + 0.1 * torch.randn(n, generator=gen, device="cuda"))
+    X = rt.from_array(xs, SERVE_BLOCK, device="cuda")
+    del xs
+    ridge = step("ridge_fit", lambda: Ridge(alpha=0.1).fit(X, y.cpu().numpy()))
+    del X, y
+    coef_err = float(np.abs(ridge.coef_ - w_true.double().cpu().numpy()).max())
+    ck(coef_err < 0.01 and abs(ridge.intercept_ - 0.5) < 0.01,
+       f"Ridge fit: max |coef - w| {coef_err:.3e}, intercept {ridge.intercept_}")
+    ck.control(float(np.abs(w_true.double().cpu().numpy()).max()) >= 0.01,
+               "zero coefficients")
+    say(f"Ridge(alpha=0.1) on {n} x {m} f32 (blocks {SERVE_BLOCK}): "
+        f"{rec['wall_s']['ridge_fit']:.3f} s, max |coef - w| {coef_err:.3e}; "
+        f"launches {rec['launches']['ridge_fit']}")
+    w32 = torch.as_tensor(ridge.coef_.astype(np.float32), device="cuda").double()
+    b0 = float(ridge.intercept_)
+    centers = km.centers_.double()
+    c_host = km.centers_.cpu().numpy()
+    rng = np.random.default_rng(seed + 12)
+    row1 = serve_payload(rng, "dense", 1)
+
+    def first_request(reg):
+        srv = serve.PredictServer(reg)
+        t0 = time.perf_counter()
+        fut = srv.submit("ridge", row1)
+        srv.pump()
+        fut.result()
+        return time.perf_counter() - t0
+
+    # 2. cold and warm registration, the first request of each ---------------
+    plan.clear_cache()
+    serve.reset_stats()
+    cold = serve.ModelRegistry(device="cuda")
+    cold_cs0 = plan.cache_stats()
+    step("register_cold", lambda: cold.register("ridge", ridge, warm=False,
+                                                **SERVE_SPEC))
+    cold_s = step("first_request_cold", lambda: first_request(cold))
+    cold_faults = steady_faults(cold_cs0, plan.cache_stats(), counters(), 1, 0)
+    ck.control(cold_faults, "a cold registry's first request")
+    plan.clear_cache()
+    serve.reset_stats()
+    reg = serve.ModelRegistry(device="cuda")
+    step("load_ridge", lambda: reg.register("ridge", ridge, **SERVE_SPEC))
+    warm_cs = plan.cache_stats()
+    ck(warm_cs["aot_compiles"] == 2 * len(SERVE_BATCHES),
+       f"warm-up built {warm_cs['aot_compiles']} runs, want {2 * len(SERVE_BATCHES)}")
+    warm_s = step("first_request_warm", lambda: first_request(reg))
+    ck(rec["launches"]["load_ridge"].get("stacked_matmul/simt", 0)
+       == len(SERVE_BATCHES), f"warm-up launches {rec['launches']['load_ridge']}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        mdir = os.path.join(tmp, "ridge")
+        step("save_ridge", lambda: ridge.save_model(mdir, version=2))
+        v2 = step("load_ridge_v2", lambda: reg.load("ridge", mdir, version=2,
+                                                    **SERVE_SPEC))
+        kmm = step("load_kmeans", lambda: reg.register(
+            "kmeans", km, n_features=N_FEATURES, batch_sizes=SERVE_BATCHES,
+            block_rows=SERVE_BLOCK_ROWS))
+        ck(reg.get("ridge") is v2 and reg.versions("ridge") == [0, 2],
+           f"ridge versions {reg.versions('ridge')}")
+        ck(not route_faults(rec["launches"]["load_kmeans"], 0, len(SERVE_BATCHES)),
+           f"K-means warm-up launches {rec['launches']['load_kmeans']}")
+        ck(plan.cache_stats()["aot_compiles"] == warm_cs["aot_compiles"],
+           "version 2 rebuilt runs its structure shares with version 0")
+        say(f"first request: cold registry {cold_s * 1e3:.3f} ms (plan optimised and "
+            f"built on the request: {cold_faults}), warm {warm_s * 1e3:.3f} ms; load s: "
+            f"ridge {rec['wall_s']['load_ridge']:.3f} (8 buckets warmed), ridge v2 from "
+            f"its model file {rec['wall_s']['load_ridge_v2']:.3f}, K-means "
+            f"{rec['wall_s']['load_kmeans']:.3f}")
+
+        # 3. the streams: 64 requests each, submitted, pumped, awaited ------
+        streams = [("ridge", "dense", b) for b in SERVE_BATCHES] + \
+                  [("ridge", "bcoo", b) for b in SERVE_BATCHES] + \
+                  [("kmeans", "dense", b) for b in SERVE_BATCHES]
+        payloads = {key: [serve_payload(rng, key[1], key[2],
+                                        c_host if key[0] == "kmeans" else None)
+                          for _ in range(SERVE_STREAM)] for key in streams}
+        srv = serve.PredictServer(reg)
+        served, stream_rates = {}, {}
+
+        def stream(key):
+            outs, lats = [], []
+            t0 = time.perf_counter()
+            for p in payloads[key]:
+                fut = srv.submit(key[0], p)
+                srv.pump()
+                outs.append(fut.result())
+                lats.append(fut.latency)
+            wall = time.perf_counter() - t0
+            lats.sort()
+            return outs, {"p50_us": lats[len(lats) // 2] * 1e6,
+                          "p99_us": lats[min(len(lats) - 1, int(len(lats) * 0.99))] * 1e6,
+                          "requests_per_s": len(lats) / wall,
+                          "rows_per_s": len(lats) * key[2] / wall}
+
+        serve.reset_stats()
+        cs0, plain0 = plan.cache_stats(), plain_gemms()
+        for key in streams:
+            name = "stream_%s_%s_%d" % key
+            served[key], stream_rates[name] = step(name, lambda key=key: stream(key))
+        cs1, st1, plain1 = plan.cache_stats(), counters(), plain_gemms()
+        n_plan = 8 * SERVE_STREAM
+        faults = steady_faults(cs0, cs1, st1, n_plan, 4 * SERVE_STREAM)
+        ck(not faults, f"steady state: {faults}")
+        ck(plain1 == plain0, f"{plain1 - plain0} GEMMs took the plain version on the card")
+        per_request = {}
+        for key in streams:
+            name = "stream_%s_%s_%d" % key
+            got = rec["launches"][name]
+            want = (SERVE_STREAM, 0) if key[:2] == ("ridge", "dense") else \
+                (0, SERVE_STREAM) if key[0] == "kmeans" else (0, 0)
+            bad = route_faults(got, *want)
+            ck(not bad, f"{name}: launches {bad}")
+            per_request[name] = {k: v / SERVE_STREAM for k, v in got.items()}
+        rec["rates"]["streams"] = stream_rates
+        rec["rates"]["launches_per_request"] = per_request
+        say(f"streams of {SERVE_STREAM} requests (model, format, rows): "
+            + "; ".join(f"{k[len('stream_'):]} p50 {v['p50_us']:.1f} µs, p99 "
+                        f"{v['p99_us']:.1f} µs, {v['requests_per_s']:.1f} req/s"
+                        for k, v in stream_rates.items()))
+        say(f"steady state over {len(streams) * SERVE_STREAM} requests: plan counters "
+            f"{cs0} -> {cs1}; serve {st1}; plain GEMMs {plain1 - plain0}; launches per "
+            f"request {json.dumps(per_request)}")
+
+        # served rows against predict on the padded bucket batch, the lone
+        # row against a direct predict, every result against float64
+        mismatch, lone = 0, 0
+        for key in streams:
+            model = reg.get(key[0])
+            for p, out in zip(payloads[key], served[key]):
+                bucket = model.spec.bucket_for(key[2], key[1])
+                want = host(model.estimator.predict(assemble([p], bucket)))
+                mismatch += not np.array_equal(out, want[:key[2]])
+                if key[2] == 1:
+                    lone += not np.array_equal(out, model.predict_direct(p))
+        ck(mismatch == 0, f"{mismatch} served results differ from predict on the "
+                          f"padded batch")
+        ck(lone == 0, f"{lone} one-row results differ from a direct predict")
+        out0 = served[streams[1]][0]
+        ck.control(not np.array_equal(np.nextafter(out0, np.inf), out0),
+                   "one ulp off the served rows")
+        ck.control(not np.array_equal(
+            reg.get("ridge").predict_direct(payloads[streams[0]][1]),
+            served[streams[0]][0]), "another row's direct predict")
+        errs = {}
+        for fmt in ("dense", "bcoo"):
+            keys = [k for k in streams if k[:2] == ("ridge", fmt)]
+            rows = np.concatenate([p if fmt == "dense" else p.toarray()
+                                   for k in keys for p in payloads[k]])
+            got = torch.as_tensor(np.concatenate([o for k in keys for o in served[k]]),
+                                  device="cuda").ravel()
+            p64 = torch.as_tensor(rows, device="cuda").double()
+            ref = p64 @ w32 + b0
+            bad = gemm_bad(got, ref, m)
+            ck(bad == 0, f"ridge {fmt}: {bad} results beyond the GEMM limit of float64")
+            ck.control(gemm_bad(torch.zeros_like(got), ref, m) > 0, f"{fmt}: zeroed")
+            ck.control(gemm_bad((tf32(p64.float()).double() @ tf32(w32.float()).double()
+                                 + b0).float(), ref, m) > 0,
+                       f"{fmt}: TF32-rounded inputs")
+            errs[fmt] = float((got.double() - ref).abs().max())
+        keys = [k for k in streams if k[0] == "kmeans"]
+        krows = torch.as_tensor(np.concatenate([p for k in keys for p in payloads[k]]),
+                                device="cuda")
+        klab = torch.as_tensor(np.concatenate([o for k in keys for o in served[k]]),
+                               device="cuda").ravel()
+        want = torch.argmin(sq_dists(krows.double(), centers), dim=1)
+        near, other, cap, kerr = label_faults(krows, centers, klab, want)
+        ck(other == 0 and near <= cap, f"K-means served labels: {other} differ beyond "
+                                       f"near-ties, {near} near-ties (cap {cap})")
+        ck.control(label_faults(krows, centers, (klab + 1) % N_CLUSTERS, want)[1] > 0,
+                   "labels shifted by one")
+        say(f"every served result is the bits of predict on its padded bucket batch "
+            f"({mismatch} differ; a lone row the bits of a direct predict: {lone} "
+            f"differ); ridge within the GEMM limit of float64 (max abs err dense "
+            f"{errs['dense']:.3e}, bcoo {errs['bcoo']:.3e}); K-means labels the float64 "
+            f"argmin on {krows.shape[0]} rows ({near} near-ties)")
+
+        # 4. injected faults: each bumps exactly its own counter -------------
+        p5 = serve_payload(rng, "dense", 5)
+        bucket8 = reg.get("ridge").spec.bucket_for(5, "dense")
+        want5 = host(ridge.predict(assemble([p5], bucket8)))[:5]
+
+        def one(specs, payload_list):
+            serve.reset_stats()
+            with R.inject(*specs):
+                futs = [srv.submit("ridge", p) for p in payload_list]
+                srv.pump()
+            return [f.result() for f in futs], counters()
+
+        clean = {"requests": 1, "responses": 1, "batches": 1, "batched_requests": 1,
+                 "cache_hits": 1, "queue_depth_peak": 1}
+
+        def delta(st):
+            return {k: v for k, v in st.items() if v}
+
+        outs, st = step("fault_none", lambda: one([], [p5]))
+        ck(delta(st) == clean and np.array_equal(outs[0], want5), f"clean request {st}")
+        outs, st_tr = step("fault_transient", lambda: one(
+            [R.FaultSpec(kind="transient", site="serve_dispatch", times=1)], [p5]))
+        want_t = dict(clean, dispatch_retries=1)
+        ck(delta(st_tr) == want_t and np.array_equal(outs[0], want5),
+           f"transient at serve_dispatch: {delta(st_tr)}")
+        ck.control(clean != want_t, "the clean request's counters")
+        p3, p2 = serve_payload(rng, "dense", 3), serve_payload(rng, "dense", 2)
+        outs, st = step("fault_shed", lambda: one(
+            [R.FaultSpec(kind="crash", site="serve_dispatch", times=None,
+                         where={"mode": "batched"})], [p3, p2]))
+        want_s = {"requests": 2, "responses": 2, "single_dispatches": 2,
+                  "batch_sheds": 1, "queue_depth_peak": 2}
+        direct = [reg.get("ridge").predict_direct(p) for p in (p3, p2)]
+        ck(delta(st) == want_s and all(np.array_equal(o, d) for o, d in zip(outs, direct)),
+           f"batched crash at serve_dispatch: {delta(st)}")
+        for name, gemms in (("fault_none", 1), ("fault_transient", 1), ("fault_shed", 2)):
+            bad = route_faults(rec["launches"][name], gemms, 0)
+            ck(not bad, f"{name}: launches {bad}")
+        say(f"faults: a transient at serve_dispatch -> {delta(st_tr)}; a crash of "
+            f"every batched dispatch -> {delta(st)}, each request the bits of its direct "
+            f"predict (the shed path launched {rec['launches']['fault_shed']})")
+
+        # 5. four client threads against the started server -----------------
+        serve.reset_stats()
+        cs_t0, plain_t0 = plan.cache_stats(), plain_gemms()
+        got_t = [None] * SERVE_CLIENTS
+        crng = np.random.default_rng(seed + 100)
+        client_payloads = [[serve_payload(crng, "dense", int(crng.integers(1, 9)))
+                            for _ in range(SERVE_CLIENT_REQUESTS)]
+                           for _ in range(SERVE_CLIENTS)]
+
+        def client(i):
+            futs = [(p, srv.submit("ridge", p)) for p in client_payloads[i]]
+            got_t[i] = [(p, f.result(timeout=120), f.latency) for p, f in futs]
+
+        def threaded():
+            srv.start()
+            try:
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(SERVE_CLIENTS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                return time.perf_counter() - t0
+            finally:
+                srv.stop()
+
+        wall = step("threaded", threaded)
+        total = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
+        ck(all(g is not None for g in got_t), "a client thread did not finish")
+        done = [r for g in got_t if g for r in g]
+        st_t = counters()
+        faults = steady_faults(cs_t0, plan.cache_stats(), st_t, total, 0)
+        ck(not faults and plain_gemms() == plain_t0, f"threaded stream: {faults}")
+        ck(len(done) == total, f"{len(done)} of {total} threaded requests answered")
+        if done:
+            p64 = torch.as_tensor(np.concatenate([p for p, _, _ in done]),
+                                  device="cuda").double()
+            got = torch.as_tensor(np.concatenate([o for _, o, _ in done]),
+                                  device="cuda").ravel()
+            bad = gemm_bad(got, p64 @ w32 + b0, m)
+            ck(bad == 0, f"threaded stream: {bad} results beyond the GEMM limit")
+            lats = sorted(lat for _, _, lat in done)
+            stream_rates["threaded_ridge_dense_1_8"] = {
+                "p50_us": lats[len(lats) // 2] * 1e6,
+                "p99_us": lats[min(len(lats) - 1, int(len(lats) * 0.99))] * 1e6,
+                "requests_per_s": len(lats) / wall,
+                "rows_per_s": p64.shape[0] / wall, "batches": st_t["batches"]}
+        say(f"{SERVE_CLIENTS} client threads x {SERVE_CLIENT_REQUESTS} requests of 1-8 "
+            f"rows: {json.dumps(stream_rates.get('threaded_ridge_dense_1_8'))}; "
+            f"serve {st_t}; launches {rec['launches']['threaded']}")
+
+        # 6. the device's busy share over the 128-row dense stream ----------
+        prof = step("profiled_stream", lambda: device_profile(
+            torch, lambda: stream(("ridge", "dense", 128)),
+            f"{SERVE_STREAM} served 128-row dense Ridge requests", tag="[12]"))
+        ck(not route_faults(rec["launches"]["profiled_stream"], SERVE_STREAM, 0),
+           f"profiled stream: launches {rec['launches']['profiled_stream']}")
+        rec["rates"]["busy_share_128_dense"] = (
+            prof["busy_ms"] / prof["wall_ms"] if prof["busy_ms"] is not None else None)
+
+        # the served GEMM alone: a 128-row bucket batch times the weights
+        gemv = serve_gemm_case(torch, assemble(
+            [serve_payload(rng, "dense", 128)],
+            reg.get("ridge").spec.bucket_for(128, "dense")).blocks,
+            ridge._weights_ds(m, "cuda").blocks)
+
+        # 7. the profiler: every node's bytes are the cost model's ----------
+        roots, _ = fused_chain(torch, A, B)
+        spec = reg.get("ridge").spec
+        coo = assemble([serve_payload(rng, "bcoo", 128)], spec.bucket_for(128, "bcoo"))
+        for name, target in (("profile_chain", list(roots)),
+                             ("profile_ridge_128", reg.get("ridge").cache.plans[
+                                 spec.bucket_for(128, "dense")]),
+                             ("profile_coo_chain_128",
+                              plan.plan_for((coo.lazy() * 2.0 + coo) * 0.5))):
+            rep = step(name, lambda target=target: obs.profile(target))
+            drift = [(r.site, r.measured_bytes, r.predicted_bytes) for r in rep.nodes
+                     if r.measured_bytes != r.predicted_bytes]
+            ck(rep.nodes and not drift, f"{name}: measured != predicted bytes {drift}")
+            ck(set(rep.compiled) == {"argument_bytes", "output_bytes", "temp_bytes"},
+               f"{name}: compiled {rep.compiled}")
+            rec["rates"][name] = {
+                "nodes": [(r.site, r.time_s * 1e3, r.measured_bytes) for r in rep.nodes],
+                "per_node_ms": rep.eager_total_s * 1e3, "fused_ms": rep.fused_time_s * 1e3,
+                "compiled": rep.compiled}
+            say(f"obs.profile {name}: {len(rep.nodes)} nodes, measured bytes = the "
+                f"law's on every node; per-node sum {rep.eager_total_s * 1e3:.3f} ms "
+                f"against the fused run's {rep.fused_time_s * 1e3:.3f} ms; compiled "
+                f"{rep.compiled}")
+        real = costmodel.node_live_bytes
+        with patched(costmodel, "node_live_bytes", lambda *a, **k: real(*a, **k) / 2):
+            ck.control(obs.profile(target, fused=False, compiled=False).drifting(),
+                       "a byte law off by 2x")
+        del roots, coo, target
+
+        # 8. from `import repro_torch` to the first response, in a process
+        # per mode; the two run side by side (each is one host thread's work)
+        firsts = {}
+        procs = {mode: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-first", mode,
+             "--serve-model", mdir], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for mode in ("cold", "warm")}
+        for mode, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            ck(proc.returncode == 0, f"--serve-first {mode}: {err[-2000:]}")
+            if proc.returncode == 0:
+                firsts[mode] = json.loads(out.strip().splitlines()[-1])
+        rec["rates"]["first_response_process"] = firsts
+        say(f"a fresh process, `import repro_torch` to the first response: "
+            f"{json.dumps(firsts)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    launches = {}
+    for counts in rec["launches"].values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    rec["wall_s"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"[12] card: {smi}; serve phase: {json.dumps(rec)}; launches {launches}",
+          flush=True)
+    ck.raise_any()
+    return launches, gemv
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--chain-launches", action="store_true",
                         help=argparse.SUPPRESS)   # phase 6's child process
+    parser.add_argument("--serve-first", choices=("cold", "warm"),
+                        help=argparse.SUPPRESS)   # phase 12's child process
+    parser.add_argument("--serve-model", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -3521,6 +4055,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
+    if args.serve_first:        # timed from the package's import on
+        emit(serve_first(args.serve_first, args.serve_model))
+        return 0
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if args.chain_launches:
         emit(chain_launches(args.seed))
@@ -3571,17 +4108,23 @@ def main(argv=None) -> int:
     sparse_launches, sparse_rows, sparse = phase_sparse(torch, gen, smi)
     est_launches, fitted = phase_estimators(torch, args.seed, smi, sparse)
     durable = phase_durable(torch, smi, fitted, km, A, B, sparse)
-    del sparse, fitted, km, A, B
+    del sparse, fitted
+    gc.collect()
+    torch.cuda.empty_cache()
+    served, served_gemm = phase_serve(torch, args.seed, smi, km, A, B)
+    del km, A, B
+    kernels[1]["cases"].append(served_gemm)
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
         for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),
-                             ("durable", durable)):
+                             ("durable", durable), ("serve", served)):
             gemm["launches_by_path"][path] = counts.get(f"stacked_matmul/{route}", 0)
             gemm["launches"] += counts.get(f"stacked_matmul/{route}", 0)
     assign = kernels[2]
-    assign["launches_by_path"]["durable"] = durable.get("kmeans_assign", 0)
-    assign["launches"] += durable.get("kmeans_assign", 0)
-    for r in ("mma", "simt"):
-        assign["launches_by_route"][r] += durable.get(f"kmeans_assign/{r}", 0)
+    for path, counts in (("durable", durable), ("serve", served)):
+        assign["launches_by_path"][path] = counts.get("kmeans_assign", 0)
+        assign["launches"] += counts.get("kmeans_assign", 0)
+        for r in ("mma", "simt"):
+            assign["launches_by_route"][r] += counts.get(f"kmeans_assign/{r}", 0)
     print(f"[9] sparse ops (torch ops, no TPU kernel): "
           f"{json.dumps({'card': smi, 'ops': sparse_rows})}", flush=True)
     print(f"[8] card: {smi}; LM path wall: {json.dumps(lm_wall)}; device profiles: "

@@ -199,6 +199,22 @@ class Expr:
         """This node over new children (the optimizer's rewrites)."""
         raise NotImplementedError
 
+    @property
+    def kind(self) -> str:
+        """The node's class name: the stable kind id the profiler and the
+        analysis layer label sites with."""
+        return type(self).__name__
+
+    def describe(self) -> str:
+        """Short stable label: ``Kind`` or ``Kind[tag]``, the tag being the
+        leading element of ``local_key()``."""
+        try:
+            lk = self.local_key()
+        except NotImplementedError:
+            return self.kind
+        tag = lk[0] if isinstance(lk, tuple) and lk else lk
+        return f"{self.kind}[{tag}]"
+
 
 class Leaf(Expr):
     """A concrete DsArray: a plan input, keyed by its signature and never by

@@ -40,12 +40,14 @@ dense per-block fns — but sparse nodes still CSE, and sparse plans cache by
 structure and ``nse`` like any other.
 
 Counters (group ``plan``): ``hits``/``misses`` of ``_CACHE``, ``launches``
-(plan executions), ``opt_runs``/``opt_skips`` and ``eager_launches``
+(plan executions), ``opt_runs``/``opt_skips``, ``eager_launches``
 (:meth:`Plan.execute_eager`, the degradation rungs; with
-``backend="einsum"`` its GEMMs take the plain version).  Both executions
-fire the ``plan_execute`` fault-injection site.  Spans: ``plan.optimize``
-and ``plan.launch``; the launch span ends after ``torch.cuda.synchronize()``
-when the plan ran on the card, so it times device work, not the enqueue.
+``backend="einsum"`` its card GEMMs keep a small split-K workspace) and
+``aot_compiles`` (:meth:`Plan.compile_aot`, the predict server's warm-up).
+Both executions fire the ``plan_execute`` fault-injection site.  Spans:
+``plan.optimize``, ``plan.aot_compile`` and ``plan.launch``; the launch
+span ends after ``torch.cuda.synchronize()`` when the plan ran on the card,
+so it times device work, not the enqueue.
 """
 
 from __future__ import annotations
@@ -69,6 +71,26 @@ from repro_torch.obs import tracing as _tracing
 # ---------------------------------------------------------------------------
 # Optimizer
 # ---------------------------------------------------------------------------
+
+
+def emission_order(roots: Sequence[Expr]) -> List[Expr]:
+    """Every DAG node in the order ``Plan._make_run`` evaluates them: the
+    child-first, left-to-right DFS of its memoised ``ev``.  The liveness
+    analysis' naive schedule and the profiler's node order are this."""
+    seen = set()
+    order: List[Expr] = []
+
+    def visit(n: Expr) -> None:
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        for c in n.children:
+            visit(c)
+        order.append(n)
+
+    for r in roots:
+        visit(r)
+    return order
 
 
 def _count_nodes(roots: Sequence[Expr]) -> int:
@@ -337,7 +359,7 @@ _OPT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _CACHE_MAX = 256
 _STATS = _metrics.CounterGroup(
     "plan", ("hits", "misses", "launches", "opt_runs", "opt_skips",
-             "eager_launches"))
+             "eager_launches", "aot_compiles"))
 
 
 def cache_stats() -> Dict[str, int]:
@@ -390,6 +412,10 @@ class Plan:
     or for inspection).
     """
 
+    #: leaf positions :meth:`compile_aot` was told the caller gives up
+    #: (kept; torch aliases nothing)
+    donate_argnums: Tuple[int, ...] = ()
+
     def __init__(self, roots: Sequence[Expr]):
         self.stats: Dict[str, int]
         self._raw_roots = list(roots)
@@ -410,10 +436,18 @@ class Plan:
         for cb in list(_PLAN_OBSERVERS):
             cb(self)
 
+    @property
+    def raw_roots(self) -> List[Expr]:
+        """The roots as recorded, before optimization."""
+        return self._raw_roots
+
     def _optimize_now(self, pre_key=None, raw_leaves=None) -> None:
         _STATS.inc("opt_runs")
-        with _tracing.span("plan.optimize", roots=len(self._raw_roots)):
+        with _tracing.span("plan.optimize",
+                           roots=len(self._raw_roots)) as sp:
             opt_roots, self.stats = optimize(self._raw_roots)
+            sp.set(nodes_before=self.stats["nodes_before"],
+                   nodes_after=self.stats["nodes_after"])
         self.key, self.leaves = _plan_key(opt_roots)
         self._roots = opt_roots
         self.stats["n_inputs"] = len(self.leaves)
@@ -468,6 +502,46 @@ class Plan:
                 out = run(*self.leaf_values())
                 _synchronize(out)
             return out
+
+    def compile_aot(self, donate_argnums: tuple = ()) -> bool:
+        """Build this plan's run callable into the shared plan cache ahead
+        of time, under the structural :attr:`key` that ``execute`` looks
+        up, so the first ``execute`` of the same structure is a hit (the
+        predict server calls this when it loads a model).  Returns True when
+        a run was built, False when the key was cached already.
+
+        When the leaves are on the card, the run also goes once over them
+        and the card is synchronised, outside the counted ``execute``: the
+        first-use work (kernel builds and loads, library handles, the
+        allocator's growth) is paid here, not by the first request.  Only
+        ``aot_compiles`` counts it (not ``hits``, ``misses`` or
+        ``launches``).
+
+        ``donate_argnums`` (positions into :attr:`leaves`) names the leaves
+        the caller will not read again.  Torch has no buffer donation: the
+        positions are checked and kept as :attr:`donate_argnums`, nothing
+        is aliased, and the caller's tensors stay readable (the reference's
+        CPU backend ignores donation the same way).
+        """
+        donate = tuple(int(i) for i in donate_argnums)
+        bad = [i for i in donate if not 0 <= i < len(self.leaves)]
+        if bad:
+            raise ValueError(f"donate_argnums {bad} out of range for a plan "
+                             f"of {len(self.leaves)} inputs")
+        self.donate_argnums = donate
+        if self.key in _CACHE:
+            _CACHE.move_to_end(self.key)
+            return False
+        with _tracing.span("plan.aot_compile", inputs=len(self.leaves),
+                           donated=len(donate)):
+            run = self._make_run()
+            vals = self.leaf_values()
+            if any(v.device.type == "cuda" for v in vals):
+                with _expr.suspend_lazy():
+                    _synchronize(run(*vals))
+        _STATS.inc("aot_compiles")
+        _bounded_put(_CACHE, self.key, run)
+        return True
 
     def execute(self) -> tuple:
         """Run the plan through its cached run callable (built on a miss)."""

@@ -813,3 +813,147 @@ def test_einsum_rung_keeps_the_kernel_in_low_memory(card):
     for got in (fused, low):
         torch.testing.assert_close(got.collect().double(), ref, atol=atol,
                                    rtol=torch.finfo(torch.float32).eps)
+
+
+# ---------------------------------------------------------------------------
+# the predict server and the profiler on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_ridge(card, n=4096, m=512, seed=21):
+    import repro_torch as pt
+    from repro_torch.estimators import Ridge
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, m)).astype(np.float32)
+    y = x @ rng.normal(size=(m,)).astype(np.float32) + 0.5
+    return Ridge(alpha=0.1).fit(pt.from_array(x, (1024, m), device=card), y)
+
+
+def test_served_rows_are_predict_on_the_padded_batch_on_the_card(card):
+    """Each served row is the bits of ``predict`` on the padded bucket batch
+    (the same batch served twice gives the same bits: the split-K
+    workspace does not change them); a lone row is a direct one-row
+    predict's bits; no GEMM takes the plain version."""
+    import repro_torch.serve as serve
+    from repro_torch.obs import registry
+    from repro_torch.serve.batching import assemble
+    est = _card_ridge(card)
+    reg = serve.ModelRegistry(device="cuda")
+    model = reg.register("ridge", est, batch_sizes=(1, 8, 32), block_rows=32)
+    srv = serve.PredictServer(reg)
+    rng = np.random.default_rng(5)
+    plain = registry.snapshot("gemm")["gemm.dispatch_plain"]
+    for sizes in ((3, 4), (20, 7, 1), (8,)):
+        payloads = [rng.normal(size=(s, 512)).astype(np.float32) for s in sizes]
+        runs = []
+        for _ in range(2):
+            futs = [srv.submit("ridge", p) for p in payloads]
+            srv.pump()
+            runs.append(np.concatenate([f.result() for f in futs]))
+        assert np.array_equal(runs[0], runs[1])
+        batch = assemble(payloads, model.spec.bucket_for(sum(sizes), "dense"))
+        want = est.predict(batch).collect().cpu().numpy()[:sum(sizes)]
+        assert np.array_equal(runs[0], want)
+    row = rng.normal(size=(1, 512)).astype(np.float32)
+    f = srv.submit("ridge", row)
+    srv.pump()
+    assert np.array_equal(f.result(), model.predict_direct(row))
+    assert registry.snapshot("gemm")["gemm.dispatch_plain"] == plain
+
+
+def test_warmed_stream_has_zero_recompiles_on_the_card(card):
+    """Across a warmed stream: ``opt_runs``, ``misses`` and ``aot_compiles``
+    frozen, ``cache_hits == requests``, no shed, fallback or failure; the
+    K-means model serves eagerly, every assign on the mma route, labels
+    equal to a direct predict."""
+    import repro_torch as pt
+    import repro_torch.serve as serve
+    from repro_torch.algorithms import KMeans
+    from repro_torch.core import plan as plan_mod
+    serve.reset_stats()
+    plan_mod.clear_cache()
+    est = _card_ridge(card)
+    rng = np.random.default_rng(6)
+    km = KMeans(n_clusters=8, max_iter=5, seed=0).fit(pt.from_array(
+        rng.normal(size=(4096, 64)).astype(np.float32), (1024, 64),
+        device=card))
+    reg = serve.ModelRegistry(device="cuda")
+    reg.register("ridge", est, batch_sizes=(1, 8, 32), block_rows=32)
+    reg.register("km", km, n_features=64, batch_sizes=(1, 8, 32),
+                 block_rows=32)
+    srv = serve.PredictServer(reg)
+    warm = plan_mod.cache_stats()
+    kk.kmeans_assign_stacked.route_launches = dict.fromkeys(
+        kk.kmeans_assign_stacked.route_launches, 0)
+    n = 0
+    for i in range(12):
+        s = (1, 5, 8, 30)[i % 4]
+        fr = srv.submit("ridge", rng.normal(size=(s, 512)).astype(np.float32))
+        rows = rng.normal(size=(s, 64)).astype(np.float32)
+        fk_ = srv.submit("km", rows)
+        srv.pump()
+        fr.result()
+        assert np.array_equal(fk_.result(), reg.get("km").predict_direct(rows))
+        n += 1
+    after = plan_mod.cache_stats()
+    for k in ("opt_runs", "misses", "aot_compiles"):
+        assert after[k] == warm[k], k
+    st = serve.stats()
+    assert st["cache_hits"] == n and st["eager_requests"] == n
+    assert st["requests"] == st["responses"] == 2 * n
+    for k in ("batch_sheds", "bucket_fallbacks", "failures", "cache_misses",
+              "dispatch_retries"):
+        assert st[k] == 0, k
+    routes = kk.kmeans_assign_stacked.route_launches
+    assert routes["mma"] > 0 and routes["simt"] == 0
+
+
+def test_profile_bytes_equal_the_law_on_the_card(card):
+    """Every node's measured bytes equal the cost model's, on the card, for
+    a fused chain and a served Ridge plan; the fused run's memory report
+    counts the leaves and the outputs."""
+    import repro_torch as pt
+    from repro_torch import obs
+    rng = np.random.default_rng(8)
+    a = pt.from_array(rng.normal(size=(1000, 700)).astype(np.float32),
+                      (256, 256), device=card).lazy()
+    chain = (((a + a) * 2.0 - a).abs() * 0.5 + 0.25)
+    est = _card_ridge(card)
+    x = pt.from_array(rng.normal(size=(32, 512)).astype(np.float32),
+                      (32, 512), device=card)
+    for target in (chain, est.predict_plan(x)):
+        rep = obs.profile(target)
+        assert rep.nodes and rep.drifting() == []
+        for rec in rep.nodes:
+            assert rec.measured_bytes == rec.predicted_bytes, rec.site
+        assert set(rep.compiled) == {"argument_bytes", "output_bytes",
+                                     "temp_bytes"}
+        assert rep.compiled["argument_bytes"] > 0
+        assert rep.compiled["output_bytes"] == rep.nodes[-1].measured_bytes
+
+
+def test_compile_aot_builds_the_kernels_before_the_first_request(card,
+                                                                  monkeypatch):
+    """With every kernel library unloaded, registering (``warm=True``) loads
+    ``stacked_matmul``'s; the first request then needs no build: a build
+    attempt would raise."""
+    import repro_torch.serve as serve
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import _build
+    est = _card_ridge(card)
+    plan_mod.clear_cache()          # earlier tests cached runs of these keys
+    monkeypatch.setattr(_build, "_libs", {})
+    reg = serve.ModelRegistry(device="cuda")
+    reg.register("ridge", est, batch_sizes=(1, 8), block_rows=8)
+    assert "stacked_matmul" in _build._libs
+
+    def no_build():
+        raise AssertionError("a request built a kernel")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    n = mk.stacked_matmul.launches
+    srv = serve.PredictServer(reg)
+    f = srv.submit("ridge", np.ones((5, 512), np.float32))
+    srv.pump()
+    assert f.result().shape == (5, 1)
+    assert mk.stacked_matmul.launches > n

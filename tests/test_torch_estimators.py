@@ -288,7 +288,7 @@ def test_validation_rejects_bad_inputs():
     assert isinstance(out, DsArray) and out.shape == (len(x), 1)
 
 
-def test_checkpoint_arguments_raise_until_ported(tmp_path):
+def test_checkpoint_arguments_are_honoured(tmp_path):
     """``checkpoint_dir``/``resume`` are honoured, never ignored (they
     raised ``NotImplementedError`` until the fit checkpoints were ported):
     a checkpointed fit commits one step per iteration and equals the plain

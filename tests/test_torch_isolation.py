@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch as pt  # noqa: E402
+import repro_torch.serve  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -96,6 +97,20 @@ with R.inject(R.FaultSpec(kind="oom", site="plan_execute",
                           modes=("fused", "eager"), times=None)):
     R.run_resilient(xd.lazy() @ xd.T, guard="finite")
 xd.finite_report()
+import repro_torch.serve
+import repro_torch.obs.profiler
+import repro_torch.analysis
+from repro_torch import obs
+ridge = Ridge(alpha=0.5).fit(xd, xs[:, 1])
+reg = repro_torch.serve.ModelRegistry(device="cpu")
+reg.register("ridge", ridge, batch_sizes=(1, 4), block_rows=4)
+reg.register("km", km, n_features=3, batch_sizes=(4,))
+srv = repro_torch.serve.PredictServer(reg)
+futs = [srv.submit("ridge", xs[:3]), srv.submit("km", np.ones((2, 3)))]
+srv.pump()
+[f.result() for f in futs]
+obs.profile(ridge.predict_plan(xd))
+repro_torch.analysis.liveness.analyze(ridge.predict_plan(xd).roots)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(loaded)
@@ -135,6 +150,9 @@ def test_default_device_is_cuda_and_never_falls_back():
                  lambda: pt.PCA().fit(arr),
                  lambda: pt.KMeans(n_clusters=2).fit(arr),
                  lambda: pt.RandomForestClassifier().fit(arr, [0, 1, 0, 1]),
-                 lambda: pt.CascadeSVM().fit(arr, [0, 1, 0, 1])):
+                 lambda: pt.CascadeSVM().fit(arr, [0, 1, 0, 1]),
+                 lambda: repro_torch.serve.ModelRegistry(),
+                 lambda: repro_torch.serve.batching.representative_input(
+                     repro_torch.serve.BucketSpec(4).buckets()[0])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
