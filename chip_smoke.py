@@ -226,6 +226,28 @@ raises and the script exits non-zero):
     per-node sum against the fused run and the run's memory; and, in child
     processes (``--serve-first``), the seconds from ``import repro_torch``
     to the first response, registered cold and warm.
+13. distribution: a one-rank NCCL group (its store a file under
+    ``build/``) and a 1 x 1 ``("data", "model")`` mesh, at the main path's
+    sizes (phase 4's A and B, the 8 M x 100 samples redrawn from
+    ``--seed``, phase 9's R): ``summa_matmul`` and ``cannon_matmul`` of the
+    8192² products in f32 (SIMT route) and bf16 (wgmma route), each call's
+    launches counted by route, within the GEMM limit of the plain product
+    (Cannon's d - 1 partial sums in the operands' type added to it), the
+    same bits twice; ``summa_matmul(A + 1, B - 2)`` whole and cut to 8000²
+    (the product of the FILL-pad blocks must fail); ``transpose_pp`` of the
+    samples equal to ``X.T`` (of ``X + 1``: FILL(1) in the pad region);
+    ``colsum_psum`` within 1e-5 of sum|x| of float64 (one block row
+    dropped must fail); ``slice_sharded``, ``rechunk_sharded``,
+    ``concat_rows_sharded`` and the plain slice, row gather, ``rechunk``,
+    ``concat_rows`` and elementwise ops of a distributed A, each equal to
+    the undistributed op with its placement kept; ``distribute_sparse`` of
+    R (stored entries and the first block row equal); a DTensor handed to
+    ``local_matmul`` raises.  Then CUDA-event times of each schedule whole,
+    its collectives alone and its local GEMMs alone beside the
+    undistributed ``A @ B``, ``transpose_pp`` and ``colsum_psum`` beside
+    their undistributed forms and bytes bounds, and the added peak memory.
+    With four cards it also runs the same in four child processes
+    (``--dist-rank``), one NCCL rank per card, on a 2 x 2 mesh.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -293,18 +315,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def gemm_bad(out, ref, depth: int) -> int:
+def gemm_bad(out, ref, depth: int, extra=0.0) -> int:
     """Elements beyond |out - ref| <= GEMM_ERRS·eps32·√depth·rms(ref) +
-    eps_out·|ref|: the fp32 accumulation error of a depth-long reduction
-    summed in another order, plus one unit in the last place of the output
-    type, which both sides round their fp32 sums to."""
+    eps_out·|ref| (+ ``extra``): the fp32 accumulation error of a
+    depth-long reduction summed in another order, plus one unit in the last
+    place of the output type, which both sides round their fp32 sums to."""
     import torch
     ref = ref.double()
     rms = float(ref.pow(2).mean().sqrt()) if ref.numel() else 0.0
     atol = GEMM_ERRS * torch.finfo(torch.float32).eps * depth ** 0.5 * rms
     rtol = torch.finfo(out.dtype).eps
     diff = (out.double() - ref).abs()
-    return int((diff > atol + rtol * ref.abs()).sum())
+    return int((diff > atol + rtol * ref.abs() + extra).sum())
 
 
 def gemm_close(out, ref, depth: int) -> float:
@@ -4038,6 +4060,363 @@ def phase_serve(torch, seed, smi, km, A, B):
     return launches, gemv
 
 
+# ---------------------------------------------------------------------------
+# phase 13: distribution
+# ---------------------------------------------------------------------------
+
+DIST_SLICE = (slice(1000, 7000), slice(2048, 8192))   # unaligned rows, aligned cols
+DIST_RECHUNK = (1024, 4096)
+DIST_RAGGED = 8000            # the FILL-pad case's cut of A and B: pad in each block edge
+DIST_RANKS = 4                # the 2 x 2 mesh: one rank per card
+COLSUM_RTOL = 1e-5            # |colsum - float64| per column, over sum(|x|) of it
+
+
+def dist_comm(so, kind, a_loc, b_loc, mesh, axes):
+    """The collectives of a schedule alone, on this rank's shards (SUMMA's
+    two all-gathers, or Cannon's skew and d - 1 shifts); returns the panels
+    its last local GEMM reads."""
+    if kind == "summa":
+        return so._summa_panels(a_loc, b_loc, mesh, axes)
+    for panels in so._cannon_panels(a_loc, b_loc, mesh, axes):
+        pass
+    return panels
+
+
+def dist_arrays(torch, seed):
+    """A and B (8192² f32, blocks 2048²), the 8 M x 100 samples and R at the
+    Netflix Prize shape, drawn from ``seed`` as phases 4 and 9 draw them
+    (the 2 x 2 mesh's ranks each draw the same arrays)."""
+    import repro_torch as rt
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, data = blob_data(torch, gen)
+    sq = torch.rand(SQUARE, SQUARE, generator=gen, device="cuda") - 0.5
+    sq2 = torch.rand(SQUARE, SQUARE, generator=gen, device="cuda") - 0.5
+    A = rt.from_array(sq, SQUARE_BLOCK, device="cuda")
+    B = rt.from_array(sq2, SQUARE_BLOCK, device="cuda")
+    del sq, sq2
+    csr, *_ = netflix_ratings(torch, gen)
+    R = rt.from_scipy(csr, NETFLIX_BLOCK, device="cuda")
+    return A, B, data, R
+
+
+def mesh_checks(torch, mesh, tag, A, B, data, R):
+    """Phase 13's checks and times on one mesh; every rank runs them alike
+    (SPMD).  Returns the record: launches of the checked calls by route,
+    CUDA-event times, added peak memory, errors."""
+    import repro_torch as rt
+    from repro_torch.core import placement as pl
+    from repro_torch.core import shmap_ops as so
+    from repro_torch.core.blocking import round_up
+    from repro_torch.kernels.matmul.ops import local_matmul
+    from repro_torch.kernels.matmul.ref import stacked_matmul_ref
+
+    ck = Checks(tag)
+    axes = ("data", "model")
+    d = mesh.size(0)
+    want_place = pl.placements(mesh, axes)
+    rec = {"mesh": f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+                   f"{mesh.device_type}, backend "
+                   f"{torch.distributed.get_backend()}",
+           "launches": {}, "errors": {}, "ms": {}, "added_mb": {}}
+
+    def say(msg):
+        print(f"{tag} {msg}", flush=True)
+
+    def placed(out, what, places=want_place):
+        leaf = out._leaf
+        ok = (pl.is_dtensor(leaf) and leaf.device_mesh == mesh
+              and tuple(leaf.placements) == tuple(places))
+        ck(ok, f"{what}: placement {getattr(leaf, 'placements', None)}, "
+               f"want {tuple(places)}")
+
+    def counted(what, fn, route, per_call):
+        """``fn()`` with a check that it launched ``stacked_matmul``
+        ``per_call`` times on ``route`` (on this rank) and on no other."""
+        before = ds_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ds_counts()
+        got = {r: after[f"stacked_matmul/{r}"] - before[f"stacked_matmul/{r}"]
+               for r in ("wgmma", "simt")}
+        want = {r: per_call if r == route else 0 for r in got}
+        ck(got == want, f"{what}: stacked_matmul launches {got}, want {want}")
+        rec["launches"][what] = got
+        return out
+
+    def gemm_ok(out, ref, depth, what, extra=0.0):
+        bad = gemm_bad(out, ref, depth, extra)
+        ck(bad == 0, f"{what}: {bad} elements beyond the GEMM limit")
+        err = float((out.double() - ref.double()).abs().max())
+        rec["errors"][what] = err
+        return err
+
+    ds_counts(zero=True)
+    t_checks = time.perf_counter()
+    # 1. SUMMA and Cannon, f32 on the SIMT route and bf16 on wgmma
+    operands = {"f32": (A, B), "bf16": (A.astype(torch.bfloat16),
+                                        B.astype(torch.bfloat16))}
+    for dt, route in (("f32", "simt"), ("bf16", "wgmma")):
+        a, b = operands[dt]
+        ref = stacked_matmul_ref(a.blocks, b.blocks, out_dtype=a.dtype)
+        # Cannon adds its d partial products in the operands' type, as the
+        # reference's schedule does: d - 1 more roundings, each within
+        # eps·(|A| @ |B|)
+        steps = (d - 1) * torch.finfo(a.dtype).eps * stacked_matmul_ref(
+            a.blocks.abs(), b.blocks.abs(), out_dtype=torch.float32).double()
+        for kind, fn, per in (("summa", so.summa_matmul, 1),
+                              ("cannon", so.cannon_matmul, d)):
+            what = f"{kind}_matmul {SQUARE}² {dt}"
+            out = counted(what, lambda: fn(a, b, mesh), route, per)
+            placed(out, what)
+            ck(out.stacked_grid == tuple(ref.shape[:2]) and out.pad_state.kind == "zero",
+               f"{what}: grid {out.stacked_grid}, pad {out.pad_state}")
+            full = pl.gather(out.blocks)
+            err = gemm_ok(full, ref, SQUARE, what, steps if kind == "cannon" else 0.0)
+            again = counted(what + ", again", lambda: fn(a, b, mesh), route, per)
+            same = torch.equal(pl.local(again.blocks), pl.local(out.blocks))
+            ck(same, f"{what}: two runs differ")
+            say(f"{what}: {per} {route} launch(es) per rank, max abs err {err:.3e} "
+                f"vs plain, same bits twice: {same}")
+            del out, full, again
+        ck.control(gemm_bad(torch.zeros_like(ref), ref, SQUARE, steps) > 0,
+                   f"zero {dt} output")
+        del ref, steps
+
+    # 2. FILL-pad operands: the schedules re-zero the pad before placing
+    for label, (a, b) in (("", (A, B)),
+                          (f" ragged {DIST_RAGGED}²",
+                           (A[:DIST_RAGGED, :DIST_RAGGED], B[:DIST_RAGGED, :DIST_RAGGED]))):
+        af, bf = a + 1.0, b - 2.0
+        what = f"summa_matmul(A + 1, B - 2){label}"
+        out = counted(what, lambda: so.summa_matmul(af, bf, mesh), "simt", 1)
+        placed(out, what)
+        ref = stacked_matmul_ref(af.ensure_zero_pad().blocks, bf.ensure_zero_pad().blocks,
+                                 out_dtype=torch.float32)
+        full = pl.gather(out.blocks)[:ref.shape[0], :ref.shape[1]]
+        err = gemm_ok(full, ref, a.shape[1], what)
+        ck(out.pad_state.kind == "zero", f"{what}: pad {out.pad_state}")
+        if label:     # the pad constants would add 1·(-2) per pad column
+            ck.control(gemm_bad(stacked_matmul_ref(af.blocks, bf.blocks,
+                                                   out_dtype=torch.float32), ref,
+                                a.shape[1]) > 0, "the product of FILL-pad blocks")
+        say(f"{what}: max abs err {err:.3e} vs the zero-padded plain product")
+        del af, bf, out, ref, full
+
+    # 3. transpose_pp and colsum_psum of the 8 M x 100 samples
+    X = rt.from_array(data, X_BLOCK, device="cuda")
+    T = so.transpose_pp(X, mesh)
+    placed(T, "transpose_pp(X)")
+    ck(T.pad_state == X.pad_state and T.shape == (N_FEATURES, N_ROWS),
+       f"transpose_pp(X): pad {T.pad_state}, shape {T.shape}")
+    ck(torch.equal(T.collect(), data.T), "transpose_pp(X) != X.T")
+    del T
+    Xf = X + 1.0
+    Tf = so.transpose_pp(Xf, mesh)
+    g = Tf._gathered()
+    ck(Tf.pad_state == Xf.pad_state and Tf.pad_state.kind == "fill"
+       and torch.equal(g.blocks, g._remask(1.0)),
+       f"transpose_pp(X + 1): pad {Tf.pad_state} not carried into the pad region")
+    ck(torch.equal(g.collect(), (data + 1.0).T), "transpose_pp(X + 1) != (X + 1).T")
+    del Xf, Tf, g
+    cs = so.colsum_psum(X, mesh)
+    placed(cs, "colsum_psum(X)", pl.reduced(want_place, (0,)))
+    got = cs.collect().double().reshape(-1)
+    c64 = torch.zeros(N_FEATURES, dtype=torch.float64, device="cuda")
+    scale = torch.zeros_like(c64)
+    for lo in range(0, N_ROWS, SAMPLE_ROWS):
+        part = data[lo:lo + SAMPLE_ROWS].double()
+        c64 += part.sum(0)
+        scale += part.abs().sum(0)
+    rel = float(((got - c64).abs() / scale).max())
+    ck(rel <= COLSUM_RTOL, f"colsum_psum(X): {rel:.3e} of sum|x| from float64")
+    short = c64 - data[:X_BLOCK[0]].double().sum(0)
+    ck.control(float(((short - c64).abs() / scale).max()) > COLSUM_RTOL,
+               "column sums without one block row")
+    rec["errors"]["colsum_psum(X) rel"] = rel
+    say(f"transpose_pp(X) {N_ROWS}x{N_FEATURES}: equal to X.T, pad "
+        f"{X.pad_state} carried (X + 1: FILL(1.0) in the pad region); "
+        f"colsum_psum(X): {rel:.3e} of sum|x| from float64")
+
+    # 4. the structural ops, explicit and plain, on a distributed A
+    Ad = A.distribute(mesh)
+    placed(Ad, "A.distribute(mesh)")
+    rows = torch.arange(1, SQUARE, 3, device="cuda")
+    pairs = {
+        "slice_sharded": (lambda: so.slice_sharded(A, DIST_SLICE, mesh),
+                          lambda: A[DIST_SLICE]),
+        "rechunk_sharded": (lambda: so.rechunk_sharded(A, DIST_RECHUNK, mesh),
+                            lambda: A.rechunk(DIST_RECHUNK)),
+        "concat_rows_sharded": (lambda: so.concat_rows_sharded([A, A[:4096]], mesh),
+                                lambda: rt.concat_rows([A, A[:4096]])),
+        "Ad[1000:7000, 2048:]": (lambda: Ad[DIST_SLICE], lambda: A[DIST_SLICE]),
+        "Ad[rows]": (lambda: Ad[rows], lambda: A[rows]),
+        "Ad.rechunk": (lambda: Ad.rechunk(DIST_RECHUNK), lambda: A.rechunk(DIST_RECHUNK)),
+        "concat_rows([Ad, Ad])": (lambda: rt.concat_rows([Ad, Ad]),
+                                  lambda: rt.concat_rows([A, A])),
+        "Ad * 2 + 1": (lambda: Ad * 2.0 + 1.0, lambda: A * 2.0 + 1.0),
+    }
+    for what, (got_fn, want_fn) in pairs.items():
+        got, want = got_fn(), want_fn()
+        placed(got, what)
+        grid = tuple(round_up(g, d) for g in want.stacked_grid)
+        ck(got.stacked_grid == grid and got.pad_state == want.pad_state
+           and torch.equal(got.collect(), want.collect()),
+           f"{what}: grid {got.stacked_grid} (want {grid}), pad {got.pad_state}, or "
+           f"values differ from the undistributed op")
+    say(f"{', '.join(pairs)}: each equal to the undistributed op, placement kept")
+
+    # 5. distribute_sparse of R
+    Rd = R.distribute(mesh)
+    placed(Rd, "R.distribute(mesh)")
+    gn, gm = R.stacked_grid
+    ck(Rd.block_format == "bcoo" and Rd.blocks.nse == R.blocks.nse
+       and torch.equal(pl.gather(Rd.blocks.data)[:gn, :gm], R.blocks.data)
+       and torch.equal(pl.gather(Rd.blocks.indices)[:gn, :gm], R.blocks.indices),
+       "R.distribute(mesh): stored entries differ")
+    first = slice(0, NETFLIX_BLOCK[0])
+    ck(torch.equal(Rd[first].collect(), R[first].collect()),
+       "R.distribute(mesh)[:32768] collected differs")
+    say(f"R {NETFLIX_USERS}x{NETFLIX_MOVIES}, grid {gn}x{gm} -> {Rd.stacked_grid} on "
+        f"the mesh: stored entries equal, first block row collected equal")
+    del Rd
+
+    # 6. no DTensor reaches a kernel
+    try:
+        local_matmul(Ad.blocks, Ad.blocks)
+        ck(False, "local_matmul took a DTensor")
+    except TypeError:
+        pass
+    launches = ds_counts()
+    rec["checks_s"] = time.perf_counter() - t_checks
+
+    # 7. times: each schedule whole, its collectives alone and its local
+    # GEMMs alone, beside the undistributed A @ B on the same route
+    for dt, route in (("f32", "simt"), ("bf16", "wgmma")):
+        a, b = operands[dt]
+        ad, bd = a.distribute(mesh), b.distribute(mesh)
+        rec["ms"][f"A @ B {dt}, undistributed"] = timed(lambda: a @ b)
+        for kind, fn in (("summa", so.summa_matmul), ("cannon", so.cannon_matmul)):
+            rec["ms"][f"{kind} {dt}"] = timed(lambda: fn(ad, bd, mesh))
+            comm = lambda: dist_comm(so, kind, pl.local(ad.blocks), pl.local(bd.blocks),
+                                     mesh, axes)
+            rec["ms"][f"{kind} {dt}, collectives"] = timed(comm)
+            sa, sb = comm()
+            steps = 1 if kind == "summa" else d
+
+            def gemms():
+                acc = so._local_gemm(sa, sb)
+                for _ in range(steps - 1):
+                    acc = acc + so._local_gemm(sa, sb)
+                return acc
+            rec["ms"][f"{kind} {dt}, local GEMMs"] = timed(gemms)
+            _, peak = added_peak(torch, lambda: fn(ad, bd, mesh))
+            rec["added_mb"][f"{kind} {dt}"] = peak / 1e6
+            del sa, sb
+        del ad, bd
+    Xd = X.distribute(mesh)
+    rec["ms"]["transpose_pp(X)"] = timed(lambda: so.transpose_pp(Xd, mesh))
+    rec["ms"]["X.T materialised, undistributed"] = timed(
+        lambda: X.blocks.permute(1, 0, 3, 2).contiguous())
+    rec["ms"]["colsum_psum(X)"] = timed(lambda: so.colsum_psum(Xd, mesh))
+    rec["ms"]["X.sum(axis=0), undistributed"] = timed(lambda: X.sum(axis=0))
+    _, peak = added_peak(torch, lambda: so.transpose_pp(Xd, mesh))
+    rec["added_mb"]["transpose_pp(X)"] = peak / 1e6
+    xbytes = 4.0 * X.blocks.numel()
+    rec["bound_ms"] = {"transpose_pp(X) (bytes)": bound(0, 2 * xbytes, "fp32")[0],
+                       "colsum_psum(X) (bytes)": bound(0, xbytes, "fp32")[0],
+                       "A @ B f32 (operations)": bound(2.0 * SQUARE ** 3, 0, "fp32")[0],
+                       "A @ B bf16 (operations)": bound(2.0 * SQUARE ** 3, 0, "bf16")[0]}
+    rec["launches_by_route"] = {r: launches[f"stacked_matmul/{r}"]
+                                for r in ("wgmma", "simt")}
+    rec["failed"] = list(ck.failed)
+    return rec
+
+
+def dist_rank_main(rank: int, world: int, store: str, seed: int) -> dict:
+    """One rank of the 2 x 2 mesh (a child process, one card each)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.compat import make_mesh
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
+        A, B, data, R = dist_arrays(torch, seed)
+        rec = mesh_checks(torch, mesh, f"[13 rank {rank}]", A, B, data, R)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    rec["rank"] = rank
+    return rec
+
+
+def phase_distributed(torch, seed, smi, A, B, R):
+    """Phase 13: distribution on a one-rank NCCL group and a 1 x 1 mesh at
+    the main path's sizes (and on a 2 x 2 mesh of four ranks, one per card,
+    where the machine has four); returns the checked calls' launches."""
+    import torch.distributed as dist
+    from repro_torch.core.compat import make_mesh
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    store = os.path.join(build, f"phase13_store_{os.getpid()}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, data = blob_data(torch, gen)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        rec = mesh_checks(torch, mesh, "[13]", A, B, data, R)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[13] card: {smi}; mesh {rec['mesh']}; times (CUDA events, ms): "
+          f"{json.dumps(rec['ms'])}; bounds (ms): {json.dumps(rec['bound_ms'])}; "
+          f"added peak (MB): {json.dumps(rec['added_mb'])}; errors: "
+          f"{json.dumps(rec['errors'])}; checked launches by route "
+          f"{rec['launches_by_route']}; checks {rec['checks_s']:.3f} s", flush=True)
+    failed = list(rec["failed"])
+
+    cards = torch.cuda.device_count()
+    if cards >= DIST_RANKS:
+        store4 = os.path.join(build, f"phase13_store4_{os.getpid()}")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--dist-rank", str(r), "--dist-store", store4],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(DIST_RANKS)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+            if os.path.exists(store4):
+                os.remove(store4)
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                failed.append(f"2 x 2 rank {r} exited {p.returncode}: {err[-2000:]}")
+                continue
+            got = json.loads(out.strip().splitlines()[-1])
+            failed += [f"2 x 2 rank {r}: {f}" for f in got["failed"]]
+            print(f"[13] 2 x 2 mesh, rank {r}: times (ms) {json.dumps(got['ms'])}; "
+                  f"added peak (MB) {json.dumps(got['added_mb'])}; launches by route "
+                  f"{got['launches_by_route']}", flush=True)
+    else:
+        print(f"[13] the 2 x 2 mesh needs {DIST_RANKS} cards (one NCCL rank per "
+              f"card); this machine has {cards}: it ran the 1 x 1 mesh only",
+              flush=True)
+    print(f"[13] distribution phase {time.perf_counter() - t_phase:.3f} s", flush=True)
+    check(not failed, "; ".join(failed))
+    return {f"stacked_matmul/{r}": n for r, n in rec["launches_by_route"].items()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4046,6 +4425,9 @@ def main(argv=None) -> int:
     parser.add_argument("--serve-first", choices=("cold", "warm"),
                         help=argparse.SUPPRESS)   # phase 12's child process
     parser.add_argument("--serve-model", help=argparse.SUPPRESS)
+    parser.add_argument("--dist-rank", type=int,
+                        help=argparse.SUPPRESS)   # phase 13's 2 x 2 ranks
+    parser.add_argument("--dist-store", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -4061,6 +4443,9 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     if args.chain_launches:
         emit(chain_launches(args.seed))
+        return 0
+    if args.dist_rank is not None:
+        emit(dist_rank_main(args.dist_rank, DIST_RANKS, args.dist_store, args.seed))
         return 0
 
     name, smi = phase_card(torch)
@@ -4108,15 +4493,21 @@ def main(argv=None) -> int:
     sparse_launches, sparse_rows, sparse = phase_sparse(torch, gen, smi)
     est_launches, fitted = phase_estimators(torch, args.seed, smi, sparse)
     durable = phase_durable(torch, smi, fitted, km, A, B, sparse)
+    R = sparse[0]                  # phase 13 distributes it
     del sparse, fitted
     gc.collect()
     torch.cuda.empty_cache()
     served, served_gemm = phase_serve(torch, args.seed, smi, km, A, B)
-    del km, A, B
+    del km
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed = phase_distributed(torch, args.seed, smi, A, B, R)
+    del A, B, R
     kernels[1]["cases"].append(served_gemm)
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
         for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),
-                             ("durable", durable), ("serve", served)):
+                             ("durable", durable), ("serve", served),
+                             ("distribution", distributed)):
             gemm["launches_by_path"][path] = counts.get(f"stacked_matmul/{route}", 0)
             gemm["launches"] += counts.get(f"stacked_matmul/{route}", 0)
     assign = kernels[2]

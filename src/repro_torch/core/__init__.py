@@ -3,8 +3,11 @@ routines, sparse blocks (``sparse``: the stacked COO, ``from_scipy``,
 ``random_sparse``), the cost-model laws (``costmodel``), the block-native
 structural ops and shuffles, the lazy plan layer (``expr`` records,
 ``plan`` optimizes, caches and runs), ingestion and spill formats
-(``io``, over the byte-range ``readers``), and the paper's row-partitioned
-Dataset baseline (``dataset_baseline``, host NumPy)."""
+(``io``, over the byte-range ``readers``), the paper's row-partitioned
+Dataset baseline (``dataset_baseline``, host NumPy), and distribution:
+``compat.make_mesh`` builds a ``DeviceMesh``, ``DsArray.distribute`` places
+the blocks on it, and ``shmap_ops`` (imported as a module) holds the
+explicitly scheduled SUMMA, Cannon, transpose and column-sum collectives."""
 
 from repro_torch.core.blocking import BlockGrid
 from repro_torch.core.dataset_baseline import Dataset, Subset, TaskCounter
@@ -13,7 +16,7 @@ from repro_torch.core.dsarray import (PAD_DIRTY, PAD_ZERO, DsArray, PadState,
                                       from_array, full, identity_like,
                                       matmul_ta, pad_state_of, random_array,
                                       zeros)
-from repro_torch.core import costmodel, sparse, structural
+from repro_torch.core import compat, costmodel, sparse, structural
 from repro_torch.core.sparse import StackedCOO, from_scipy, random_sparse
 from repro_torch.core.shuffle import exact_shuffle, pseudo_shuffle
 from repro_torch.core import expr, plan
@@ -29,4 +32,4 @@ __all__ = ["BlockGrid", "Dataset", "Subset", "TaskCounter", "DsArray",
            "exact_shuffle", "structural", "gram", "take_rows", "take_cols",
            "matmul_ta", "costmodel", "sparse", "StackedCOO", "from_scipy",
            "random_sparse", "expr", "plan", "LazyDsArray", "lazy", "compute",
-           "compute_multi", "io", "readers"]
+           "compute_multi", "io", "readers", "compat"]

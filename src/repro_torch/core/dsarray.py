@@ -26,6 +26,21 @@ raises instead of landing on the CPU.
 
 Dtypes stay 32-bit, as in the JAX package (which never enables x64):
 ``from_array`` turns float64 into float32 and int64 into int32.
+
+Distribution (``distribute``): the stacked blocks become a ``DTensor`` on
+a ``DeviceMesh``, grid dims sharded over two named mesh axes
+(``core.placement``).  Every rank runs the same program (SPMD), so on a
+distributed array ``collect()`` and the reductions are collective calls.
+The elementwise ops, ``map_blocks``, ``astype``, ``ensure_zero_pad`` and
+the reductions work on each rank's shard (a reduction all-reduces its
+partials; ``sum(axis=0)`` comes back replicated on the mesh axis of grid
+dim 0, as ``core.shmap_ops.colsum_psum``'s); ``transpose`` permutes each
+shard, and its result has the mirrored placement (the mesh axis of grid
+dim 0 then shards grid dim 1).  ``@`` runs ``shmap_ops.summa_matmul``.
+The structural ops, ``matmul_ta``, ``apply_along_axis`` and every op on
+sparse blocks but ``todense``/``collect`` run on the gathered blocks and
+place the result on the operand's mesh and axes (``core.shmap_ops`` lists
+them).  No DTensor reaches a kernel.
 """
 
 from __future__ import annotations
@@ -38,7 +53,8 @@ from typing import Any, Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.blocking import BlockGrid
+from repro_torch.core import placement as _pl
+from repro_torch.core.blocking import BlockGrid, round_up
 
 Number = Union[int, float]
 
@@ -69,6 +85,28 @@ def _recordable(method):
     return op
 
 
+def _replace(out, like: "DsArray"):
+    """``out`` placed on the mesh and axes of ``like`` when ``like`` is
+    distributed (a result that is no ds-array is returned as it is)."""
+    if isinstance(out, DsArray) and like.is_distributed:
+        return out.distribute(*like.mesh_axes)
+    return out
+
+
+def _gathers(sparse_only: bool = False):
+    """An op that, on a distributed array (with ``sparse_only``, a sparse
+    one only), runs on the gathered blocks and places its result on the
+    operand's mesh and axes."""
+    def deco(method):
+        @functools.wraps(method)
+        def op(self, *args, **kwargs):
+            if self.is_distributed and (self.is_sparse or not sparse_only):
+                return _replace(method(self._gathered(), *args, **kwargs), self)
+            return method(self, *args, **kwargs)
+        return op
+    return deco
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for CUDA without a card."""
     dev = torch.device(device)
@@ -79,21 +117,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _axis_mask(size: int, g: int, b: int, device) -> torch.Tensor:
-    """(g, b) bool mask: True where global index g*b_idx + offset < size."""
-    idx = torch.arange(g * b, device=device).reshape(g, b)
+def _axis_mask(size: int, g: int, b: int, device, start: int = 0) -> torch.Tensor:
+    """(g, b) bool mask of grid blocks ``start .. start + g``: True where
+    the global index (block * b + offset) < size."""
+    idx = torch.arange(start * b, (start + g) * b, device=device).reshape(g, b)
     return idx < size
 
 
 def _valid_mask(grid: BlockGrid, stacked_grid: Tuple[int, int],
-                device) -> torch.Tensor:
-    """Boolean mask over the stacked tensor marking logically-valid elements,
-    built from two per-axis masks broadcast together."""
+                device, start: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Boolean mask over the stacked tensor (or over the shard of it that
+    starts at grid block ``start``) marking logically-valid elements, built
+    from two per-axis masks broadcast together."""
     n, m = grid.shape
     bn, bm = grid.block_shape
     gn, gm = stacked_grid
-    rows = _axis_mask(n, gn, bn, device)                 # (gn, bn)
-    cols = _axis_mask(m, gm, bm, device)                 # (gm, bm)
+    rows = _axis_mask(n, gn, bn, device, start[0])       # (gn, bn)
+    cols = _axis_mask(m, gm, bm, device, start[1])       # (gm, bm)
     return rows[:, None, :, None] & cols[None, :, None, :]
 
 
@@ -260,7 +300,26 @@ class DsArray:
 
     @property
     def device(self) -> torch.device:
-        return self.blocks.device
+        """The device of the blocks (of this rank's shard, when distributed)."""
+        return _pl.local(self._leaf).device
+
+    @property
+    def _leaf(self) -> torch.Tensor:
+        """The dense block tensor, or a sparse array's ``data``."""
+        return self.blocks.data if self.is_sparse else self.blocks
+
+    @property
+    def is_distributed(self) -> bool:
+        """True when the blocks are placed on a device mesh (:meth:`distribute`)."""
+        return _pl.is_dtensor(self._leaf)
+
+    @property
+    def mesh_axes(self):
+        """``(mesh, axes)`` of a distributed array: the ``DeviceMesh`` and
+        the mesh axes of grid dims 0 and 1 (``None``: not sharded)."""
+        if not self.is_distributed:
+            raise ValueError("the array is not distributed")
+        return _pl.axes_of(self._leaf)
 
     @property
     def block_format(self) -> str:
@@ -292,6 +351,11 @@ class DsArray:
             raise RuntimeError("sparse blocks are zero-padded by construction"
                                " — there is nothing to remask")
         fill_v = torch.tensor(fill, dtype=self.dtype, device=self.device)
+        if self.is_distributed:       # each rank masks its own shard
+            loc = _pl.local(self.blocks)
+            mask = _valid_mask(self.grid, tuple(loc.shape[:2]), loc.device,
+                               _pl.offsets(self.blocks))
+            return _pl.rewrap(torch.where(mask, loc, fill_v), self.blocks)
         return torch.where(self._mask(), self.blocks, fill_v)
 
     def ensure_zero_pad(self) -> "DsArray":
@@ -309,20 +373,67 @@ class DsArray:
 
     # -- materialization ------------------------------------------------------
     def collect(self) -> torch.Tensor:
-        """Paper §4.2.3 ``collect``: merge the blocks into one local tensor."""
+        """Paper §4.2.3 ``collect``: merge the blocks into one local tensor
+        (on a distributed array, a collective call: every rank gets it)."""
         if self.is_sparse:
             return self.todense().collect()
-        gn, gm, bn, bm = self.blocks.shape
+        blocks = _pl.gather(self.blocks)
+        gn, gm, bn, bm = blocks.shape
         n, m = self.shape
-        global_form = self.blocks.permute(0, 2, 1, 3).reshape(gn * bn, gm * bm)
+        global_form = blocks.permute(0, 2, 1, 3).reshape(gn * bn, gm * bm)
         return global_form[:n, :m]
 
+    # -- distribution ---------------------------------------------------------
+    def distribute(self, mesh, axes: Tuple[Optional[str], Optional[str]]
+                   = ("data", "model")) -> "DsArray":
+        """Place the blocks on a ``DeviceMesh`` (``core.compat.make_mesh``):
+        grid dim 0 sharded over the mesh axis ``axes[0]``, grid dim 1 over
+        ``axes[1]`` (``None``: replicated).  The grid is first padded to
+        multiples of those axes' sizes (the new blocks are pad), the
+        counterpart of PyCOMPSs giving whole blocks to workers.  Every rank
+        calls it with the same array (SPMD) and keeps its own shard: no
+        communication, unless the array was distributed otherwise (then it
+        is gathered first).  Idempotent."""
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.distribute_sparse(self, mesh, axes)
+        places = _pl.placements(mesh, axes)
+        gn, gm = self.stacked_grid
+        target = (round_up(gn, _pl.axis_size(mesh, axes[0])),
+                  round_up(gm, _pl.axis_size(mesh, axes[1])))
+        me = self
+        if self.is_distributed:
+            if (self.blocks.device_mesh == mesh and target == (gn, gm)
+                    and tuple(self.blocks.placements) == places):
+                return self
+            me = self._gathered()
+        padded = me._pad_grid_to(target)
+        return DsArray(_pl.place(padded.blocks, mesh, places), self.grid,
+                       padded.pad_state)
+
+    def sharding_spec(self, axes=("data", "model")) -> tuple:
+        """The mesh axis of each dim of the stacked tensor: the counterpart
+        of the reference's ``P(axes[0], axes[1], None, None)``."""
+        return (axes[0], axes[1], None, None)
+
+    def _gathered(self) -> "DsArray":
+        """This array with all of its blocks on this rank (an all-gather of
+        a distributed array's shards; self otherwise)."""
+        if not self.is_distributed:
+            return self
+        if self.is_sparse:
+            from repro_torch.core import sparse as sparse_mod
+            return sparse_mod.gather_sparse(self)
+        return DsArray(_pl.gather(self.blocks), self.grid, self.pad_state)
+
     # -- block-format conversions (paper: NumPy OR scipy.sparse blocks) ------
+    @_gathers(sparse_only=True)
     def todense(self) -> "DsArray":
         """This array with dense stacked blocks (identity when dense)."""
         from repro_torch.core import sparse as sparse_mod
         return sparse_mod.todense(self)
 
+    @_gathers()
     def tosparse(self, nse: Optional[int] = None) -> "DsArray":
         """This array with stacked-COO blocks (identity when sparse); see
         ``core.sparse`` for the format and the op policy."""
@@ -342,10 +453,10 @@ class DsArray:
             raise AssertionError(f"grid {self.grid} does not cover shape")
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
-            sparse_mod.check_bcoo_invariants(self)
+            sparse_mod.check_bcoo_invariants(self._gathered())
             return self
         sgn, sgm = self.stacked_grid
-        blocks = self.blocks.detach().cpu()
+        blocks = _pl.gather(self.blocks).detach().cpu()
         if blocks.dtype == torch.bfloat16:
             blocks = blocks.float()          # numpy has no bfloat16
         g = blocks.numpy().transpose(0, 2, 1, 3).reshape(sgn * bn, sgm * bm)
@@ -376,7 +487,7 @@ class DsArray:
         ``FiniteReport`` (``.ok`` / ``.describe()``); blocks are named
         ``block (gi, gj)`` in the ``check_invariants`` style."""
         from repro_torch.resilience import guards
-        return guards.finite_report(self)
+        return guards.finite_report(self._gathered())
 
     # -- laziness -------------------------------------------------------------
     def lazy(self) -> "LazyDsArray":
@@ -397,31 +508,44 @@ class DsArray:
             # operand of sub)
             me = me.astype(torch.int32 if type(_scalar_operand(other)) is int
                            else torch.float32)
-        if me.is_sparse or (isinstance(other, DsArray) and other.is_sparse):
+        is_ds = isinstance(other, DsArray)
+        # with an operand on a mesh, both are placed alike and op runs per shard
+        ref = me if me.is_distributed else \
+            other if is_ds and other.is_distributed else None
+        if me.is_sparse or (is_ds and other.is_sparse):
             from repro_torch.core import sparse as sparse_mod
+            if ref is not None:      # sparse on a mesh: on the gathered blocks
+                rhs = other._gathered() if is_ds else other
+                return _replace(sparse_mod.binary(me._gathered(), rhs, op, reverse),
+                                ref)
             return sparse_mod.binary(me, other, op, reverse)
-        if isinstance(other, DsArray):
+        if ref is not None:
+            me = me.distribute(*ref.mesh_axes)
+        if is_ds:
             if other.shape != self.shape:
                 raise ValueError(f"shape mismatch {self.shape} vs {other.shape}")
             if other.block_shape != self.block_shape:
                 other = other.rechunk(self.block_shape)
-            if other.stacked_grid != self.stacked_grid:
+            if ref is not None:
+                other = other.distribute(*ref.mesh_axes)
+            if other.stacked_grid != me.stacked_grid:
                 common = (max(me.stacked_grid[0], other.stacked_grid[0]),
                           max(me.stacked_grid[1], other.stacked_grid[1]))
                 me = me._pad_grid_to(common)
                 other = other._pad_grid_to(common)
-            rhs = other.blocks
+            rhs = _pl.local(other.blocks)
             probe_rhs = (other.pad_state, other.dtype)
         else:
             rhs = _scalar_operand(other)
             if rhs is None:
                 return NotImplemented
             probe_rhs = rhs
-        out = op(rhs, me.blocks) if reverse else op(me.blocks, rhs)
+        loc = _pl.local(me.blocks)
+        out = op(rhs, loc) if reverse else op(loc, rhs)
         # both pad regions hold known constants at the SAME positions, so the
         # result pad is the op of the constants — no remask, just bookkeeping
         pad = _probe_binary_pad(op, me.pad_state, me.dtype, probe_rhs, reverse)
-        return DsArray(out, BlockGrid(me.shape, me.block_shape), pad)
+        return DsArray(me._placed(out), BlockGrid(me.shape, me.block_shape), pad)
 
     def __add__(self, o):
         return self._binary(o, torch.add)
@@ -455,6 +579,7 @@ class DsArray:
         return self.map_blocks(torch.neg)
 
     @_recordable
+    @_gathers(sparse_only=True)
     def map_blocks(self, fn: Callable[[torch.Tensor], torch.Tensor],
                    pad: Optional[PadState] = None) -> "DsArray":
         """Apply an elementwise function to every block.  The pad state comes
@@ -464,12 +589,13 @@ class DsArray:
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
             return sparse_mod.map_blocks_sparse(self, fn, pad)
-        out = fn(self.blocks)
-        if out.shape != self.blocks.shape:
+        loc = _pl.local(self.blocks)      # on a mesh: fn maps each shard
+        out = fn(loc)
+        if out.shape != loc.shape:
             raise ValueError("map_blocks must preserve block shapes")
         if pad is None:
             pad = _probe_map_pad(fn, self.pad_state, self.dtype)
-        return DsArray(out, self.grid, pad)
+        return DsArray(self._placed(out), self.grid, pad)
 
     def sqrt(self) -> "DsArray":
         return self.map_blocks(torch.sqrt)
@@ -481,6 +607,7 @@ class DsArray:
         return self.map_blocks(torch.abs)
 
     @_recordable
+    @_gathers(sparse_only=True)
     def astype(self, dtype: torch.dtype) -> "DsArray":
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
@@ -489,22 +616,47 @@ class DsArray:
         if pad.kind == "fill":
             # the physical pad is cast too; re-derive the constant the same way
             pad = pad_state_of(_cast(torch.tensor(pad.fill, dtype=self.dtype), dtype))
-        return DsArray(_cast(self.blocks, dtype), self.grid, pad)
+        out = _cast(_pl.local(self.blocks), dtype)
+        return DsArray(self._placed(out), self.grid, pad)
+
+    def _placed(self, loc: torch.Tensor) -> torch.Tensor:
+        """``loc``, a shard-wise result of the same shape as this rank's
+        shard, placed as the blocks are (``loc`` itself when not
+        distributed)."""
+        return _pl.rewrap(loc, self.blocks) if self.is_distributed else loc
 
     # -- structural ops ---------------------------------------------------------
     @_recordable
+    @_gathers(sparse_only=True)
     def transpose(self) -> "DsArray":
         """Paper §5.2: per-block transpose + block-grid permutation.  Returns
         a permuted VIEW of the stacked tensor (no copy); the GEMM kernel
         reads it through its strides.  Sparse blocks swap their grid dims
-        and each entry's indices: O(nnz)."""
+        and each entry's indices: O(nnz).  On a mesh each rank permutes its
+        shard (no communication) and the result has the mirrored placement,
+        as the reference's ``P(axes[1], axes[0])``; ``shmap_ops.transpose_pp``
+        gives the unmirrored one."""
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
             return sparse_mod.transpose_sparse(self)
-        out = self.blocks.permute(1, 0, 3, 2)
+        out = _pl.local(self.blocks).permute(1, 0, 3, 2)
+        if self.is_distributed:
+            b = self.blocks
+            gn, gm, bn, bm = b.shape
+            out = _pl.wrap(out, b.device_mesh, _pl.mirrored(b.placements),
+                           (gm, gn, bm, bn))
         return DsArray(out, self.grid.transpose(), self.pad_state)
 
     def _pad_grid_to(self, stacked_grid: Tuple[int, int]) -> "DsArray":
+        if self.is_distributed and tuple(stacked_grid) != self.stacked_grid:
+            # the shards change: grow the gathered grid, place it exactly
+            me = self._gathered()._pad_grid_to(stacked_grid)
+            if me.is_sparse:
+                from repro_torch.core import sparse as sparse_mod
+                return sparse_mod.place_sparse(me, self._leaf.device_mesh,
+                                               self._leaf.placements)
+            return DsArray(_pl.place(me.blocks, self.blocks.device_mesh,
+                                     self.blocks.placements), me.grid, me.pad_state)
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
             return sparse_mod.pad_grid_sparse(self, stacked_grid)
@@ -533,7 +685,15 @@ class DsArray:
         stacked GEMM over (grid-k, block-k).  Zero pads on both operands make
         the padded contraction exact, so the result pad is zero.  A sparse
         left operand contracts its stored entries (``local_matmul``'s sparse
-        dispatch); a sparse right operand densifies."""
+        dispatch); a sparse right operand densifies.
+
+        With an operand on a mesh, the blocks never reach the kernel as a
+        DTensor: two dense operands whose placement shards both grid dims
+        run ``shmap_ops.summa_matmul`` on that mesh and axes (every shard's
+        product one ``stacked_matmul`` launch; the result stays on the mesh,
+        placed as the operand); any other pair (a replicated axis, sparse
+        blocks) multiplies the gathered operands and places the product as
+        the distributed operand is."""
         from repro_torch.kernels.matmul.ops import local_matmul
         if _lazy_mode():
             from repro_torch.core import expr
@@ -541,6 +701,8 @@ class DsArray:
                 return expr.lift_lazy(self) @ other
         if not isinstance(other, DsArray):
             return NotImplemented
+        if self.is_distributed or other.is_distributed:
+            return _matmul_placed(self, other)
         if other.is_sparse:
             other = other.todense()
         if self.shape[1] != other.shape[0]:
@@ -562,7 +724,11 @@ class DsArray:
 
     # -- reductions ---------------------------------------------------------
     @_recordable
+    @_gathers(sparse_only=True)
     def _reduce(self, op: str, axis: Optional[int]):
+        """On a mesh each rank reduces its shard and the partials are
+        all-reduced over the mesh axes of the reduced grid dims: the result
+        is replicated there (a 0-d tensor on every rank for ``axis=None``)."""
         if self.is_sparse:
             from repro_torch.core import sparse as sparse_mod
             return sparse_mod.reduce_sparse(self, op, axis)
@@ -579,34 +745,44 @@ class DsArray:
             x = self.blocks
         else:
             x = self._remask(fill)
+        unsigned = False
         if op == "sum":
             # 32-bit integer accumulators, as the reference's sums: uint32
             # for unsigned types (torch has no uint32 sum: int64, wrapped)
             unsigned = integral and self.dtype != torch.bool \
                 and not self.dtype.is_signed
             acc = torch.int64 if unsigned else torch.int32 if integral else None
-
-            def red(t, dims=None):
-                out = t.sum(dtype=acc) if dims is None else t.sum(dim=dims, dtype=acc)
-                return out.to(torch.uint32) if unsigned else out
+            red = lambda t, dims=None: (t.sum(dtype=acc) if dims is None
+                                        else t.sum(dim=dims, dtype=acc))
         else:
             f = torch.amax if op == "max" else torch.amin
             red = lambda t, dims=None: f(t) if dims is None else f(t, dim=dims)
+        xl = _pl.local(x)
+
+        def total(part, dims):
+            """The partial reduced over the shards of grid dims ``dims``."""
+            if self.is_distributed:
+                part = _pl.reduce_shards(part.contiguous(), x, dims, op)
+            return part.to(torch.uint32) if unsigned else part
+
         if axis is None:
-            return red(x)
-        if axis == 0:
-            # paper Fig. 5: one task per column of blocks
-            out = red(x, (0, 2))  # (gm, bm)
-            gm, bm = out.shape
-            blocks = out.reshape(1, gm, 1, bm)
-            grid = BlockGrid((1, self.shape[1]), (1, bm))
-        elif axis == 1:
-            out = red(x, (1, 3))  # (gn, bn)
-            gn, bn = out.shape
-            blocks = out.reshape(gn, 1, bn, 1)
-            grid = BlockGrid((self.shape[0], 1), (bn, 1))
-        else:
+            return total(red(xl), (0, 1))
+        if axis not in (0, 1):
             raise ValueError(f"axis must be 0, 1 or None, got {axis}")
+        # paper Fig. 5: one task per column (axis 0) or row (axis 1) of blocks
+        out = total(red(xl, (0, 2) if axis == 0 else (1, 3)), (axis,))
+        g, b = out.shape
+        if axis == 0:
+            blocks = out.reshape(1, g, 1, b)
+            grid = BlockGrid((1, self.shape[1]), (1, b))
+        else:
+            blocks = out.reshape(g, 1, b, 1)
+            grid = BlockGrid((self.shape[0], 1), (b, 1))
+        if self.is_distributed:
+            gn, gm = self.stacked_grid
+            shape = (1, gm, 1, b) if axis == 0 else (gn, 1, b, 1)
+            blocks = _pl.wrap(blocks, x.device_mesh,
+                              _pl.reduced(x.placements, (axis,)), shape)
         # pad lines of the result reduce over identity-only values
         return DsArray(blocks, grid, pad_state_of(fill))
 
@@ -657,15 +833,34 @@ class DsArray:
 # ---------------------------------------------------------------------------
 
 
+def _matmul_placed(a: DsArray, b: DsArray) -> DsArray:
+    """``a @ b`` with an operand on a mesh (see ``DsArray.__matmul__``)."""
+    from repro_torch.core import shmap_ops
+    ref = a if a.is_distributed else b
+    mesh, axes = ref.mesh_axes
+    if a.is_sparse or b.is_sparse or None in axes:
+        return _replace(a._gathered() @ b._gathered(), ref)
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul shape mismatch {a.shape} @ {b.shape}")
+    if a.block_shape[1] != b.block_shape[0]:
+        b = b.rechunk((a.block_shape[1], b.block_shape[1]))
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return shmap_ops.summa_matmul(a.astype(dt), b.astype(dt), mesh, axes)
+
+
 def matmul_ta(a: DsArray, b: DsArray) -> DsArray:
     """``Aᵀ @ B`` with the transpose folded into the GEMM: ``a`` stays in its
     untransposed stacked layout and ``local_matmul`` reads it transposed
     (a sparse ``a`` is contracted by its stored entries; a sparse ``b``
-    densifies)."""
+    densifies).  With an operand on a mesh it multiplies the gathered
+    operands and places the product as that operand is."""
     from repro_torch.core import structural
     from repro_torch.kernels.matmul.ops import local_matmul
     if not isinstance(b, DsArray):
         raise TypeError("matmul_ta wants DsArray operands")
+    if a.is_distributed or b.is_distributed:
+        return _replace(matmul_ta(a._gathered(), b._gathered()),
+                        a if a.is_distributed else b)
     if b.is_sparse:
         b = b.todense()
     if a.shape[0] != b.shape[0]:
@@ -693,10 +888,13 @@ def apply_along_axis(fn: Callable[[torch.Tensor], torch.Tensor], axis: int,
     that each slice is contiguous in a rank-3 block layout (grid dim first,
     never the rank-2 ``(n, m)`` form) and ``fn`` runs as one
     ``vmap(vmap(fn))`` over all of them; results of all-pad slices are
-    masked to zero."""
+    masked to zero.  On a distributed ``a`` it runs on the gathered blocks
+    and places the result as ``a`` is."""
     from repro_torch.core import structural
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if a.is_distributed:
+        return _replace(apply_along_axis(fn, axis, a._gathered()), a)
     a2 = a.ensure_zero_pad()
     if a2.is_sparse:
         a2 = a2.todense()      # per-slice fns need the dense block layout

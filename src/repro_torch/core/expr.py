@@ -224,6 +224,10 @@ class Leaf(Expr):
     __slots__ = ("value",)
 
     def __init__(self, value: DsArray):
+        if value.is_distributed:
+            raise NotImplementedError(
+                "lazy plans over a distributed ds-array are not supported: "
+                "run its eager ops, or record on collect()ed data")
         self.value = value
         self.children = ()
         self.meta = DsArray(_abstract(value.blocks), value.grid,

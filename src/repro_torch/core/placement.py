@@ -1,0 +1,173 @@
+"""Stacked blocks placed on a device mesh: the port's counterpart of the
+reference's ``NamedSharding(mesh, P(axes[0], axes[1], None, None))``.
+
+A distributed ds-array holds its stacked blocks as a ``DTensor`` over a
+``DeviceMesh`` (``core.compat.make_mesh``): grid dim 0 is ``Shard(0)`` on the
+mesh dim named ``axes[0]``, grid dim 1 is ``Shard(1)`` on the one named
+``axes[1]``, and every other mesh dim (or an axis given as ``None``) is
+``Replicate()``.  Each rank holds its shard as the DTensor's local tensor.
+The functions here read and write those shards directly, with every
+collective explicit; the ops do not lean on DTensor's op propagation, which
+drops a sliced sharded dim to ``Replicate`` and refuses a plain tensor
+beside a DTensor.
+
+A dim of ``size`` sharded over ``d`` ranks is cut as ``torch.chunk`` cuts
+it: ``ceil(size / d)`` per rank, the last ones shorter or empty.  The ops
+pad grids to mesh multiples, so shards are even but where a caller asks
+for an exact grid (``DsArray._pad_grid_to``).
+
+``torch.distributed.tensor`` is imported only when a mesh is first used, so
+that ``import repro_torch`` does not pay for it.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+Axes = Tuple[Optional[str], Optional[str]]
+
+
+def is_dtensor(t) -> bool:
+    """True for a ``DTensor`` (none can exist before its module is loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def axis_size(mesh, axis: Optional[str]) -> int:
+    """The size of the mesh dim named ``axis`` (1 for ``None``)."""
+    if axis is None:
+        return 1
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r}; its axes are {names}")
+    return mesh.size(names.index(axis))
+
+
+def placements(mesh, axes: Axes) -> tuple:
+    """The DTensor placements, one per mesh dim, of blocks whose grid dims
+    are sharded over the mesh axes ``axes``."""
+    from torch.distributed.tensor import Replicate, Shard
+    if len(axes) != 2:
+        raise ValueError(f"axes names the two grid dims, got {axes}")
+    for a in axes:
+        axis_size(mesh, a)
+    if axes[0] is not None and axes[0] == axes[1]:
+        raise ValueError(f"both grid dims on mesh axis {axes[0]!r}")
+    return tuple(Shard(axes.index(n)) if n in axes else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
+def axes_of(t) -> Tuple[object, Axes]:
+    """The mesh of a placed block tensor and the mesh axes of its grid dims
+    (the inverse of :func:`placements`)."""
+    names = t.device_mesh.mesh_dim_names
+    axes = [None, None]
+    for name, p in zip(names, t.placements):
+        if p.is_replicate():
+            continue
+        if not p.is_shard() or p.dim not in (0, 1) or axes[p.dim] is not None:
+            raise NotImplementedError(
+                f"blocks placed as {tuple(t.placements)}: only the grid dims "
+                f"may be sharded, each on one mesh axis")
+        axes[p.dim] = name
+    return t.device_mesh, tuple(axes)
+
+
+def mirrored(places: Sequence) -> tuple:
+    """``places`` with grid dims 0 and 1 swapped (the transpose's)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(1 - p.dim) if p.is_shard() else p for p in places)
+
+
+def reduced(places: Sequence, dims: Sequence[int]) -> tuple:
+    """``places`` with the mesh dims that shard one of ``dims`` replicated
+    (the placement of a result summed over those dims)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if p.is_shard() and p.dim in dims else p
+                 for p in places)
+
+
+def _chunk(size: int, parts: int, index: int) -> slice:
+    step = -(-size // parts) if size else 0
+    start = min(index * step, size)
+    return slice(start, min(start + step, size))
+
+
+def shard_slices(mesh, places: Sequence, shape: Sequence[int]) -> tuple:
+    """The slices of a tensor of ``shape`` that this rank holds."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise RuntimeError("this rank is not in the mesh")
+    out = [slice(None)] * len(shape)
+    for i, p in enumerate(places):
+        if p.is_shard():
+            if out[p.dim] != slice(None):
+                raise NotImplementedError("a dim sharded over two mesh dims")
+            out[p.dim] = _chunk(int(shape[p.dim]), mesh.size(i), coord[i])
+    return tuple(out)
+
+
+def offsets(t) -> Tuple[int, int]:
+    """The grid coordinates of the first block of this rank's shard."""
+    sl = shard_slices(t.device_mesh, t.placements, t.shape)
+    return sl[0].start or 0, sl[1].start or 0
+
+
+def local(t):
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _stride(loc: torch.Tensor, shape: Sequence[int]) -> tuple:
+    """Packed strides of ``shape`` in the dim order of ``loc``'s layout."""
+    order = sorted(range(len(shape)), key=lambda d: (-loc.stride(d), d))
+    out, acc = [0] * len(shape), 1
+    for d in reversed(order):
+        out[d] = acc
+        acc *= int(shape[d])
+    return tuple(out)
+
+
+def wrap(loc: torch.Tensor, mesh, places: Sequence, shape: Sequence[int]):
+    """This rank's shard ``loc`` as the DTensor of global ``shape`` (no
+    communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(loc, mesh, tuple(places), run_check=False,
+                              shape=torch.Size(shape), stride=_stride(loc, shape))
+
+
+def rewrap(loc: torch.Tensor, like):
+    """``loc`` as a DTensor with ``like``'s mesh, placements and shape."""
+    return wrap(loc, like.device_mesh, like.placements, like.shape)
+
+
+def place(full: torch.Tensor, mesh, places: Sequence):
+    """Place ``full``, which every rank holds alike (SPMD), on the mesh: each
+    rank keeps its own shard, a view of ``full`` (no communication)."""
+    if full.device.type != mesh.device_type:
+        raise ValueError(f"blocks on {full.device} cannot be placed on a "
+                         f"{mesh.device_type!r} mesh")
+    loc = full[shard_slices(mesh, places, full.shape)]
+    return wrap(loc, mesh, places, full.shape)
+
+
+def gather(t):
+    """The whole tensor on every rank (an all-gather of the shards)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def reduce_shards(loc: torch.Tensor, like, dims: Sequence[int], op: str):
+    """All-reduce this rank's partial ``loc`` (in place) over every mesh dim
+    that shards one of the tensor dims ``dims`` of ``like``; ``op`` is
+    ``"sum"``, ``"max"`` or ``"min"``."""
+    import torch.distributed as dist
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
+    mesh = like.device_mesh
+    for i, p in enumerate(like.placements):
+        if p.is_shard() and p.dim in dims:
+            dist.all_reduce(loc, op=rop, group=mesh.get_group(i))
+    return loc

@@ -854,6 +854,50 @@ def pad_grid_sparse(a: "DsArray", stacked_grid: Tuple[int, int]) -> "DsArray":
     return DsArray(blocks, a.grid, PAD_ZERO)
 
 
+def place_sparse(a: "DsArray", mesh, places) -> "DsArray":
+    """``a``'s stacked COO with ``data`` and ``indices`` placed on ``mesh``
+    with the grid-dim placements ``places`` (each rank keeps its blocks'
+    entries whole)."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.dsarray import DsArray
+    sp = a.blocks
+    blocks = StackedCOO(pl.place(sp.data, mesh, places),
+                        pl.place(sp.indices, mesh, places), sp.shape,
+                        sp.indices_sorted, sp.unique_indices)
+    return DsArray(blocks, a.grid, a.pad_state)
+
+
+def distribute_sparse(a: "DsArray", mesh, axes) -> "DsArray":
+    """Shard a sparse ds-array's grid dims over the mesh: the grid padded
+    to mesh multiples (sentinel blocks), then ``data (gn, gm, nse)`` and
+    ``indices (gn, gm, nse, 2)`` placed with matching placements.  Only
+    ``collect``/``todense`` (and ``distribute``) read it in place; every
+    other op runs on the gathered blocks (``core.dsarray``)."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.blocking import round_up
+    places = pl.placements(mesh, axes)
+    gn, gm = a.stacked_grid
+    target = (round_up(gn, pl.axis_size(mesh, axes[0])),
+              round_up(gm, pl.axis_size(mesh, axes[1])))
+    if a.is_distributed:
+        data = a.blocks.data
+        if (data.device_mesh == mesh and target == (gn, gm)
+                and tuple(data.placements) == places):
+            return a
+        a = gather_sparse(a)
+    return place_sparse(pad_grid_sparse(a, target), mesh, places)
+
+
+def gather_sparse(a: "DsArray") -> "DsArray":
+    """A distributed sparse ds-array with every block on this rank."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.dsarray import DsArray
+    sp = a.blocks
+    blocks = StackedCOO(pl.gather(sp.data), pl.gather(sp.indices), sp.shape,
+                        sp.indices_sorted, sp.unique_indices)
+    return DsArray(blocks, a.grid, a.pad_state)
+
+
 def reduce_sparse(a: "DsArray", op: str, axis: Optional[int]):
     """Reductions over a sparse ds-array.  ``sum`` is sparse-native: the
     stored entries are summed (implicit zeros are the identity), per row or

@@ -7,6 +7,13 @@ layout, and re-establishes the pad-is-zero invariant before returning.
 Sparse operands densify first (per-position data movement has no form over
 stored entries), except for the block-aligned slice, which slices the
 stacked COO's grid dims, and ``gram``, which contracts the stored entries.
+
+On a distributed operand (``DsArray.distribute``) each op runs on the
+gathered blocks and its result is placed on the operand's mesh and axes,
+its grid padded to the mesh's multiples (``concat_rows``: those of its
+first distributed part; ``gram`` returns a tensor on every rank).  The
+reference keeps the operand's ``NamedSharding`` the same way, and drops
+to an unsharded result where the new grid does not divide the mesh.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 
 from repro_torch.core.blocking import (BlockGrid, can_regroup, ceil_div,
                                        grid_span, is_aligned_slice)
+from repro_torch.core.dsarray import _gathers, _replace
 
 
 def _as_dense(a):
@@ -93,6 +101,7 @@ def index_vector(idx, size: int, device, what: str,
     return t
 
 
+@_gathers()
 def take_rows(a, idx, out_bn: Optional[int] = None, checked: bool = False):
     """Integer-array row selection (the paper's 'filtering'), block-native.
     ``checked``: see :func:`index_vector`."""
@@ -109,6 +118,7 @@ def take_rows(a, idx, out_bn: Optional[int] = None, checked: bool = False):
     return type(a)(out, grid)
 
 
+@_gathers()
 def take_cols(a, idx, out_bm: Optional[int] = None, checked: bool = False):
     """Column analogue of :func:`take_rows` (gather on the transposed grid)."""
     a = _as_dense(a).ensure_zero_pad()
@@ -130,6 +140,7 @@ def take_cols(a, idx, out_bm: Optional[int] = None, checked: bool = False):
 # ---------------------------------------------------------------------------
 
 
+@_gathers()
 def aligned_slice(a, rows: slice, cols: slice):
     """``A[r0:r1, c0:c1]`` with r0/c0 on block boundaries and unit step: a
     grid slice (a view) plus an edge remask when the slice stops mid-block."""
@@ -151,6 +162,7 @@ def aligned_slice(a, rows: slice, cols: slice):
     return type(a)(out, BlockGrid((nr, nc), (bn, bm)))
 
 
+@_gathers()
 def getitem(a, key, checked: bool = False):
     """NumPy-style ``A[key]`` lowered to block-native ops (paper §4.2.3).
 
@@ -300,6 +312,7 @@ def _rechunk_blocks(blocks: torch.Tensor, shape: Tuple[int, int],
     return _mask_axes(blocks, n=need_r, m=need_c)
 
 
+@_gathers()
 def rechunk(a, block_shape: Tuple[int, int]):
     """Re-block to a new block size without materializing the global array:
     a reshape regroup when block shapes divide per axis, a windowed per-block
@@ -328,6 +341,9 @@ def concat_rows(arrays: Sequence):
     arrays = list(arrays)
     if not arrays:
         raise ValueError("concat_rows of empty sequence")
+    placed = [a for a in arrays if a.is_distributed]
+    if placed:
+        return _replace(concat_rows([a._gathered() for a in arrays]), placed[0])
     m = arrays[0].shape[1]
     for a in arrays[1:]:
         if a.shape[1] != m:
@@ -374,6 +390,7 @@ def gram(a) -> torch.Tensor:
     ``a`` is the left operand of ``matmul_ta`` with its dense form on the
     right: the stored entries are contracted, ``a`` itself never
     densifies."""
+    a = a._gathered()
     if a.is_sparse:
         from repro_torch.core.dsarray import matmul_ta
         return matmul_ta(a, a.todense()).collect().to(a.dtype)

@@ -16,14 +16,33 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+def refuse_dtensor(what: str, *operands) -> None:
+    """Raise ``TypeError`` for a ``DTensor`` operand (a stacked COO's
+    ``data`` or ``indices`` included), on any device: its ``data_ptr()`` is
+    0, so a kernel would read address 0.  A distributed ds-array hands each
+    rank's local shard to the kernel (``core.shmap_ops``)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None:
+        return
+    for t in operands:
+        leaves = (t,) if t is None or isinstance(t, torch.Tensor) \
+            else (t.data, t.indices)
+        if any(isinstance(x, mod.DTensor) for x in leaves):
+            raise TypeError(f"{what} takes local tensors, got a DTensor: pass "
+                            f"to_local() shards or use core.shmap_ops")
+
 
 class KernelError(RuntimeError):
     """A kernel failed to build or to launch.  Deterministic: the same call

@@ -69,6 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, kv_len: Optional[int] = None
                     ) -> torch.Tensor:
     """Attention on the card; see ``ref.attention_ref`` for the function."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     tensors = (q, k, v)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_attention wants CUDA tensors on one device, "

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -26,6 +27,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``(B, Hq, Tq, D)``, k/v ``(B, Hkv, Tk, D)`` -> ``(B, Hq, Tq, D)``.
     ``sm_scale`` defaults to ``1/sqrt(D)``; ``kv_len`` (default ``Tk``)
     hides keys at positions ``>= kv_len``."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / q.shape[-1] ** 0.5
     kw = dict(causal=causal, window=window, softcap=softcap,

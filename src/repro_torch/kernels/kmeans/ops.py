@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.kmeans import kernel
 from repro_torch.kernels.kmeans.ref import (kmeans_assign_ref,
                                             kmeans_assign_stacked_ref)
@@ -25,6 +26,7 @@ def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor,
                           n: int) -> Stats:
     """labels ``(gn*bn,)`` int32 (-1 for rows >= n), sums ``(k, gm*bm)``
     f32, counts ``(k,)`` f32 for the stacked ``(gn, gm, bn, bm)`` tensor."""
+    _build.refuse_dtensor("kmeans_assign", blocks, centers)
     if blocks.device.type == "cpu":
         return kmeans_assign_stacked_ref(blocks, centers, n)
     if blocks.device.type != "cuda":
@@ -35,6 +37,7 @@ def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor,
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> Stats:
     """The reference's 2-D form: labels ``(n,)`` int32, sums ``(k, d)`` f32,
     counts ``(k,)`` f32 for samples ``x (n, d)``."""
+    _build.refuse_dtensor("kmeans_assign", x, centers)
     n, d = x.shape
     labels, sums, counts = kmeans_assign_stacked(
         x.reshape(1, 1, n, d).contiguous(),

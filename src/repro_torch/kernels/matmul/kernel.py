@@ -152,6 +152,7 @@ def stacked_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype,
     both operands must share one dtype among f32/f16/bf16.
     ``low_memory=True`` holds the split-K workspace within
     :data:`LOW_MEMORY_WORKSPACE`."""
+    _build.refuse_dtensor("stacked_matmul", a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"stacked_matmul wants CUDA tensors on one device, "
                          f"got {a.device} and {b.device}")

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch._faults import fire as _fire
 from repro_torch.core.sparse import StackedCOO, _acc_dtype, _to_dense_blocks
+from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import kernel
 from repro_torch.kernels.matmul.ref import matmul_ref, stacked_matmul_ref
 from repro_torch.obs import metrics as _metrics
@@ -143,8 +144,10 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     ``transpose_a=True`` computes ``Aᵀ @ B`` with ``a`` in its untransposed
     stacked layout ``(gk, gi, bk, bn)``; the kernel reads it transposed.
     Operands of two different float types are cast to their common type
-    first (the kernel takes one input type).
+    first (the kernel takes one input type).  A ``DTensor`` operand raises
+    ``TypeError`` on any device: pass each rank's shard.
     """
+    _build.refuse_dtensor("local_matmul", a, b)
     if transpose_a:
         gk, gi, bk, bn = a.shape
     else:

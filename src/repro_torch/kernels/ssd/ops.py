@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.blocking import round_up
+from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_ref
 
@@ -26,6 +27,7 @@ __all__ = ["ssd_chunk", "ssd_scan", "ssd_decode_step", "ssd_chunk_ref",
 
 def ssd_chunk(x, dt, a, b, c, *, chunk: int):
     """Chunk-local terms (see ``ref.ssd_chunk_ref``); T divides by chunk."""
+    _build.refuse_dtensor("ssd_chunk", x, dt, a, b, c)
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, a, b, c, chunk=chunk)
     if x.device.type != "cuda":
@@ -40,6 +42,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x ``(BH, T, P)``, dt ``(BH, T)``, a ``(BH,)``, b/c ``(BG, T, S)``,
     h0 ``(BH, S, P)`` -> (y ``(BH, T, P)`` in x's dtype, h_final
     ``(BH, S, P)`` f32)."""
+    _build.refuse_dtensor("ssd_scan", x, dt, a, b, c, h0)
     bh, t, p = x.shape
     s = b.shape[-1]
     t_pad = round_up(t, chunk)

@@ -957,3 +957,52 @@ def test_compile_aot_builds_the_kernels_before_the_first_request(card,
     srv.pump()
     assert f.result().shape == (5, 1)
     assert mk.stacked_matmul.launches > n
+
+
+# ---------------------------------------------------------------------------
+# Distribution: a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(card, tmp_path):
+    """A one-rank NCCL group (its store a file under ``tmp_path``) and a
+    1 x 1 ``("data", "model")`` mesh on the card."""
+    import torch.distributed as dist
+    from repro_torch.core.compat import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "wgmma")])
+def test_summa_matmul_on_a_one_rank_nccl_mesh(nccl_mesh, dtype, route):
+    """``summa_matmul`` at 4096² launches ``stacked_matmul`` once, on the
+    route the dtype gives, on the rank's local shards: within the GEMM
+    limit of the plain product, the same bits twice, the result on the
+    mesh; its blocks (a DTensor) given to ``local_matmul`` raise."""
+    import repro_torch as pt
+    from repro_torch.core import placement, shmap_ops
+    n, bs = 4096, (1024, 1024)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    A = pt.from_array(torch.rand(n, n, generator=g, device="cuda") - 0.5, bs,
+                      device="cuda").astype(dtype)
+    B = pt.from_array(torch.rand(n, n, generator=g, device="cuda") - 0.5, bs,
+                      device="cuda").astype(dtype)
+    before = dict(mk.stacked_matmul.route_launches)
+    C = shmap_ops.summa_matmul(A, B, nccl_mesh)
+    torch.cuda.synchronize()
+    after = mk.stacked_matmul.route_launches
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == route) for r in after}
+    assert C.is_distributed and C.mesh_axes[1] == ("data", "model")
+    out = placement.local(C.blocks)
+    _gemm_close(out, stacked_matmul_ref(A.blocks, B.blocks, out_dtype=dtype), n)
+    again = placement.local(shmap_ops.summa_matmul(A, B, nccl_mesh).blocks)
+    assert torch.equal(out, again)
+    with pytest.raises(TypeError, match="DTensor"):
+        local_matmul(C.blocks, C.blocks)
