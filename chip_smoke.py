@@ -248,6 +248,25 @@ raises and the script exits non-zero):
     their undistributed forms and bytes bounds, and the added peak memory.
     With four cards it also runs the same in four child processes
     (``--dist-rank``), one NCCL rank per card, on a 2 x 2 mesh.
+14. plan analysis, its launch counts zeroed before and read after:
+    ``analysis.check`` (every rule, ``WAIVERS`` of ``python -m
+    repro_torch.analysis`` suppressed) over the plans captured with
+    ``plan.capture_plans()`` from phase 4's ``KMeans(64)`` fit (a dense fit
+    records none) and its predict and score on the 8 M x 100 samples, phase
+    6's fold and power iteration on them and its fused chain on the 8192²
+    A and B (into ``sum(0)``, ``max(1)``, ``sum(0)``), phase 4's 8192²
+    ``A @ B`` in f32 and bf16 recorded lazily, phase 9's sparse plans on R (the sparse
+    ``‖x‖²`` and ``Rᵀ @ U``), phase 10's ``PCA(8)`` and ``Ridge(alpha=1)``
+    fits, and one warmed bucket (128 rows) of phase 12's served Ridge: per
+    plan the findings by rule and severity, the naive and minimised peaks,
+    and each plane's seconds (the graph plane's added peak memory too); any
+    finding at or above ``warn`` that ``WAIVERS`` does not name fails.  The
+    graph of phase 4's pipeline at 64 x 48 (the six-op chain, one ``@``, one
+    folded ``matmul_ta``) recorded on the card and on the CPU must be equal
+    node for node, kernel nodes included.  ``python -m repro_torch.analysis``
+    in a child process on the card must exit 0 and print exactly the
+    waivers ``WAIVERS`` lists.  Both GEMM routes and the assign's mma route
+    must have launched.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -1098,6 +1117,7 @@ def main_path(torch, gen):
     """Phase 4: the main path through the public entry points."""
     import repro_torch as rt
     from repro_torch.algorithms import KMeans
+    from repro_torch.core import plan
     from repro_torch.kernels.kmeans import kernel as kk
     from repro_torch.kernels.matmul import kernel as mk
     from repro_torch.kernels.matmul.ref import stacked_matmul_ref
@@ -1124,9 +1144,9 @@ def main_path(torch, gen):
     torch.cuda.synchronize()
     wall["algebra_s"] = time.perf_counter() - t0
     km = KMeans(n_clusters=k, max_iter=20, tol=1e-4, seed=0)
-    with tracing.recording() as events:
+    with tracing.recording() as events, plan.capture_plans() as fit_plans:
         t0 = time.perf_counter()
-        km.fit(x)
+        km.fit(x)           # phase 14 lints the plans it records
         torch.cuda.synchronize()
         wall["fit_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1208,7 +1228,7 @@ def main_path(torch, gen):
           f"differs from the float64 argmin at {near} near-ties (gap < "
           f"{GAP_ERRS} x {lerr:.3e}), 0 others")
     print(f"[4] wall: {json.dumps(wall)}", flush=True)
-    return x, A, B, Ab, Bb, km, launches, wall
+    return x, A, B, Ab, Bb, km, launches, wall, fit_plans
 
 
 def assign_times(torch, blocks, centers, n: int, label: str, phase: int):
@@ -4057,7 +4077,7 @@ def phase_serve(torch, seed, smi, km, A, B):
     print(f"[12] card: {smi}; serve phase: {json.dumps(rec)}; launches {launches}",
           flush=True)
     ck.raise_any()
-    return launches, gemv
+    return launches, gemv, ridge
 
 
 # ---------------------------------------------------------------------------
@@ -4417,6 +4437,192 @@ def phase_distributed(torch, seed, smi, A, B, R):
     return {f"stacked_matmul/{r}": n for r, n in rec["launches_by_route"].items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: plan analysis
+# ---------------------------------------------------------------------------
+
+ANALYSIS_CLI_TIMEOUT = 300          # s for the `python -m repro_torch.analysis` child
+
+
+def small_pipeline(rt, plan, device: str):
+    """Phase 4's pipeline at 64 x 48 in 8 x 8 blocks, as one plan: the
+    six-op chain, one ``@`` and one folded ``matmul_ta``, from one NumPy
+    seed on ``device``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    a = rt.from_array(rng.standard_normal((64, 48), np.float32), (8, 8),
+                      device=device)
+    w = rt.from_array(rng.standard_normal((48, 32), np.float32), (8, 8),
+                      device=device)
+    chain = ((a.lazy() + a) * 2.0 - a).abs() * 0.5 + 0.25
+    return plan.plan_for(chain, a.lazy() @ w, a.lazy().T @ a)
+
+
+def phase_analysis(torch, seed, smi, fit_plans, km, A, B, R, ridge):
+    """Phase 14: ``analysis.check`` (every rule) over the main path's own
+    plans at full width, the graph plane the same on the card and the CPU,
+    and the CLI in a child process on the card; returns the phase's
+    ``stacked_matmul`` and ``kmeans_assign`` launches by route."""
+    import re
+    from collections import Counter
+    import repro_torch as rt
+    from repro_torch import analysis
+    from repro_torch.algorithms import PCA
+    from repro_torch.algorithms import kmeans as pkmeans
+    from repro_torch.analysis.__main__ import WAIVERS, dedup
+    from repro_torch.core import plan
+    from repro_torch.estimators import Ridge
+    from repro_torch.obs import registry
+    from repro_torch.serve import ModelRegistry
+
+    t_phase = time.perf_counter()
+    ck = Checks("[14]")
+    rec = {"plans": {}, "wall_s": {}}
+
+    def say(what):
+        print(f"[14] {what} (card: {smi})", flush=True)
+
+    ds_counts(zero=True)
+    plain0 = registry.snapshot("gemm")["gemm.dispatch_plain"]
+
+    # 1. the main path's plans, captured from its own entry points ----------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, data = blob_data(torch, gen)              # drawn as phase 10 draws them
+    n, m = data.shape
+    y = data @ torch.randn(m, generator=gen, device="cuda") + 0.5
+    x = rt.from_array(data, X_BLOCK, device="cuda")
+    plans = {"kmeans_fit": dedup(fit_plans)}    # phase 4's fit (dense: none)
+
+    def caught(name, fn):
+        with plan.capture_plans() as got:
+            fn()
+        torch.cuda.synchronize()
+        plans[name] = dedup(got)
+
+    caught("kmeans_predict_score", lambda: (km.predict(x), km.score(x)))
+    caught("fold", lambda: (x.lazy().T @ x).compute())
+    caught("fused_chain", lambda: plan.compute_multi(*fused_chain(torch, A, B)[0]))
+    q = torch.linalg.qr(torch.randn((N_FEATURES, PCA_COLS), generator=gen,
+                                    device="cuda"))[0]
+    caught("power_iteration", lambda: (x.lazy().T @ (x.lazy() @ rt.from_array(
+        q, (N_FEATURES, PCA_COLS), device="cuda"))).compute())
+    Ab, Bb = A.astype(torch.bfloat16), B.astype(torch.bfloat16)
+    caught("gemm_f32", lambda: (A.lazy() @ B).compute())
+    caught("gemm_bf16", lambda: (Ab.lazy() @ Bb).compute())
+    U = rt.from_array(torch.randn(NETFLIX_USERS, ALS_FACTORS, generator=gen,
+                                  device="cuda") * 0.1,
+                      (NETFLIX_BLOCK[0], ALS_FACTORS), device="cuda")
+    caught("sparse_row_sq_norms", lambda: pkmeans._row_sq_norms(R))
+    caught("sparse_ta_dense", lambda: (R.lazy().T @ U).compute())
+    caught("pca_fit", lambda: PCA(n_components=PCA_K).fit(x))
+    caught("ridge_fit", lambda: Ridge(alpha=RIDGE_ALPHA).fit(x, y))
+    reg = ModelRegistry(device="cuda")
+    reg.register("ridge", ridge, batch_sizes=(SERVE_BATCHES[-1],),
+                 block_rows=SERVE_BLOCK_ROWS)
+    plans["served_ridge_128"] = dedup(reg.warmed_plans())
+    rec["wall_s"]["capture_s"] = time.perf_counter() - t0
+    ck(not plans["kmeans_fit"], f"the dense K-means fit recorded "
+       f"{len(plans['kmeans_fit'])} plans, want none (ROADMAP.md §3)")
+    ck(all(plans[k] for k in plans if k != "kmeans_fit"),
+       f"no plan captured: {[k for k in plans if not plans[k]]}")
+
+    # 2. every rule over every plan ----------------------------------------
+    lint_launches = None
+    for name, ps in plans.items():
+        for i, p in enumerate(ps):
+            label = name if i == 0 else f"{name}#{i}"
+            view = analysis.PlanView(p)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            g = view.graph()
+            torch.cuda.synchronize()
+            t_graph = time.perf_counter() - t0
+            added = torch.cuda.max_memory_allocated() - base
+            t0 = time.perf_counter()
+            view.profile()
+            t_profile = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rep = analysis.check(view, fail_on="warn", suppress=list(WAIVERS))
+            t_rules = time.perf_counter() - t0
+            naive, minimized, inputs, nodes = rep.by_rule("peak-hbm-liveness")[0].data
+            found = Counter(f"{f.rule}/{f.severity}" for f in rep.findings)
+            found.update(f"{f.rule}/{f.severity}/waived" for f in rep.suppressed)
+            rec["plans"][label] = {
+                "nodes": nodes, "ops": len(g),
+                "kernel_nodes": sum(nd.kind == "kernel" for nd in g),
+                "findings": dict(found),
+                "waived": sorted({(f.token, tuple(f.data)) for f in rep.suppressed}),
+                "naive_peak": naive, "minimized_peak": minimized,
+                "input_bytes": inputs, "graph_s": t_graph,
+                "graph_added_bytes": added, "profile_s": t_profile,
+                "rules_s": t_rules}
+            ck(rep.ok, f"{label}: unwaived findings at or above warn: "
+                       f"{[str(f) for f in rep.failing]}")
+            say(f"{label}: {nodes} nodes, {len(g)} ops; findings {dict(found)}; "
+                f"peak naive {naive:,} minimized {minimized:,} (inputs "
+                f"{inputs:,}); graph {t_graph:.3f} s (+{added / 1e6:.1f} MB), "
+                f"profile {t_profile:.3f} s, rules {t_rules:.3f} s")
+    lint_launches = ds_counts()
+    chain = rec["plans"]["fused_chain"]["waived"]
+    ck(chain == [("no-full-grid-intermediate@entry:fused-step-outputs", (4, 1))],
+       f"the fused chain's waived findings {chain}: want only its 4 step "
+       f"outputs against a budget of 1 (ROADMAP.md §3)")
+    plain = registry.snapshot("gemm")["gemm.dispatch_plain"] - plain0
+    ck(plain == 0, f"{plain} GEMMs on the card took the plain version")
+    largest = max(rec["plans"], key=lambda k: rec["plans"][k]["input_bytes"])
+    big = rec["plans"][largest]
+    say(f"the graph plane on the largest plan ({largest}, inputs "
+        f"{big['input_bytes'] / 1e9:.3f} GB): {big['graph_s']:.3f} s host, "
+        f"+{big['graph_added_bytes'] / 1e6:.1f} MB peak")
+
+    # 3. the graph does not depend on the device ---------------------------
+    graphs = {dev: small_pipeline(rt, plan, dev).graph() for dev in ("cpu", "cuda")}
+    kernels = {dev: [nd.op for nd in g if nd.kind == "kernel"]
+               for dev, g in graphs.items()}
+    ck(graphs["cuda"] == graphs["cpu"],
+       f"the small pipeline's graph differs between the card and the CPU:\n"
+       f"cuda:\n{graphs['cuda']}\ncpu:\n{graphs['cpu']}")
+    ck(kernels["cuda"] == ["kernel:stacked_matmul"] * 2,
+       f"kernel nodes {kernels}")
+    say(f"the 64 x 48 pipeline: {len(graphs['cuda'])} ops on the card, "
+        f"{len(graphs['cpu'])} on the CPU, equal node for node: "
+        f"{graphs['cuda'] == graphs['cpu']}; kernel nodes {kernels['cuda']}")
+
+    # 4. the CLI in a child process on the card ----------------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=ANALYSIS_CLI_TIMEOUT)
+    rec["wall_s"]["cli_s"] = time.perf_counter() - t0
+    waived = {line.split()[-1] for line in proc.stdout.splitlines()
+              if line.strip().startswith("[waived:")}
+    ck(proc.returncode == 0, f"python -m repro_torch.analysis exited "
+       f"{proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    ck(waived == set(WAIVERS), f"the CLI waived {sorted(waived)}, WAIVERS "
+       f"lists {sorted(WAIVERS)}")
+    scenarios = re.findall(r"^== (\S+):", proc.stdout, re.M)
+    say(f"python -m repro_torch.analysis: exit {proc.returncode} in "
+        f"{rec['wall_s']['cli_s']:.2f} s, {len(scenarios)} plans "
+        f"({', '.join(scenarios)}), waived {sorted(waived)}")
+
+    launches = ds_counts()
+    ck(lint_launches["stacked_matmul/wgmma"] > 0 and lint_launches["stacked_matmul/simt"] > 0,
+       f"the linted plans' GEMMs by route {lint_launches}: want both routes")
+    ck(lint_launches["kmeans_assign/mma"] > 0 and lint_launches["kmeans_assign/simt"] == 0,
+       f"kmeans_assign by route {lint_launches}: want mma only")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    rec["wall_s"]["phase_s"] = time.perf_counter() - t_phase
+    print(f"[14] card: {smi}; analysis phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4453,7 +4659,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(torch, gen)
     phase_lm_kernels(torch, gen)
-    x, A, B, Ab, Bb, km, launches, wall = main_path(torch, gen)
+    x, A, B, Ab, Bb, km, launches, wall, fit_plans = main_path(torch, gen)
     kernels, whole = phase_times(torch, x, A, B, Ab, Bb, km, launches)
     print(f"[5] card: {smi}; main path wall: {json.dumps(wall)}")
     lazy = phase_lazy(torch, gen, args.seed, x, A, B, km, smi)
@@ -4497,21 +4703,23 @@ def main(argv=None) -> int:
     del sparse, fitted
     gc.collect()
     torch.cuda.empty_cache()
-    served, served_gemm = phase_serve(torch, args.seed, smi, km, A, B)
-    del km
+    served, served_gemm, ridge = phase_serve(torch, args.seed, smi, km, A, B)
     gc.collect()
     torch.cuda.empty_cache()
     distributed = phase_distributed(torch, args.seed, smi, A, B, R)
-    del A, B, R
+    gc.collect()
+    torch.cuda.empty_cache()
+    analyzed = phase_analysis(torch, args.seed, smi, fit_plans, km, A, B, R, ridge)
+    del A, B, R, km, ridge
     kernels[1]["cases"].append(served_gemm)
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
         for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),
                              ("durable", durable), ("serve", served),
-                             ("distribution", distributed)):
+                             ("distribution", distributed), ("analysis", analyzed)):
             gemm["launches_by_path"][path] = counts.get(f"stacked_matmul/{route}", 0)
             gemm["launches"] += counts.get(f"stacked_matmul/{route}", 0)
     assign = kernels[2]
-    for path, counts in (("durable", durable), ("serve", served)):
+    for path, counts in (("durable", durable), ("serve", served), ("analysis", analyzed)):
         assign["launches_by_path"][path] = counts.get("kmeans_assign", 0)
         assign["launches"] += counts.get("kmeans_assign", 0)
         for r in ("mma", "simt"):

@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.core import placement as _pl
 from repro_torch.core.blocking import BlockGrid, round_up
+from repro_torch.kernels import _record
 
 Number = Union[int, float]
 
@@ -241,10 +242,88 @@ def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if not t.dtype.is_floating_point or dtype.is_floating_point \
             or dtype.is_complex or dtype == torch.bool:
         return t.to(dtype)
+    # a graph recorder tags these passes: they are the cast's, not remasks
+    return _record.scoped("cast", _saturating_cast, t, dtype)
+
+
+def _saturating_cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     info = torch.iinfo(dtype)
     out = torch.where(torch.isnan(t), 0, t).to(dtype)
     out = torch.where(t >= float(info.max) + 1, info.max, out)
     return torch.where(t < info.min, info.min, out)
+
+
+def _valid_reduce(red, combine, shape: Tuple[int, int], fill: Number):
+    """``red(t, dims)`` over the valid elements of stacked blocks alone.
+
+    The valid elements of an ``(n, m)`` array are the full blocks and the
+    valid lines of the edge block-row and -column: four strided views,
+    reduced apart and joined with ``combine``, so no masked copy of the
+    operand is written (a grid with no pad is one view, the whole).  The
+    result's pad lines hold ``fill``, as a reduce over remasked blocks
+    gives them."""
+
+    def valid(t, dims=None):
+        if dims is None:
+            return _combine(combine, [red(v) for v in _valid_views(t, shape)])
+        if dims == (0, 2):               # axis 0: axis 1 of the transpose
+            return _rows(red, combine, t.permute(1, 0, 3, 2), shape[::-1],
+                         fill)
+        return _rows(red, combine, t, shape, fill)
+
+    return valid
+
+
+def _valid_views(t: torch.Tensor, shape: Tuple[int, int]):
+    """The (up to) four views of ``t``'s valid elements."""
+    (i0, rv), (j0, cv) = divmod(shape[0], t.shape[2]), divmod(shape[1],
+                                                              t.shape[3])
+    views = []
+    if i0 and j0:
+        views.append(t[:i0, :j0])
+    if i0 and cv:
+        views.append(t[:i0, j0, :, :cv])
+    if rv and j0:
+        views.append(t[i0, :j0, :rv])
+    if rv and cv:
+        views.append(t[i0, j0, :rv, :cv])
+    return views
+
+
+def _rows(red, combine, t: torch.Tensor, shape: Tuple[int, int],
+          fill: Number) -> torch.Tensor:
+    """``red`` of each row of ``t``'s valid elements, as a ``(gn, bn)``
+    tensor whose pad rows hold ``fill``."""
+    gn, _, bn, bm = t.shape
+    i0, rv = divmod(shape[0], bn)
+    j0, cv = divmod(shape[1], bm)
+
+    def across(r):                       # r: (k, gm, h, bm) -> (k, h)
+        parts = []
+        if j0:
+            parts.append(red(r[:, :j0], (1, 3)))
+        if cv:
+            parts.append(red(r[:, j0, :, :cv], (2,)))
+        return _combine(combine, parts)
+
+    lines = []
+    if i0:
+        lines.append(across(t[:i0]).reshape(-1))
+    if rv:
+        lines.append(across(t[i0:i0 + 1, :, :rv]).reshape(-1))
+    n_pad = gn * bn - i0 * bn - rv
+    if n_pad:
+        lines.append(torch.full((n_pad,), fill, dtype=lines[0].dtype,
+                                device=t.device))
+    out = lines[0] if len(lines) == 1 else torch.cat(lines)
+    return out.reshape(gn, bn)
+
+
+def _combine(combine, parts):
+    out = parts[0]
+    for p in parts[1:]:
+        out = combine(out, p)
+    return out
 
 
 class DsArray:
@@ -738,13 +817,15 @@ class DsArray:
             fill = {"sum": 0, "max": int(info.min), "min": int(info.max)}[op]
         else:
             fill = {"sum": 0, "max": -float("inf"), "min": float("inf")}[op]
-        # refill only when the pad is not already the reduction identity
+        # a pad that is not already the reduction identity is remasked on a
+        # mesh (each rank its shard); on one device the reduce reads the
+        # valid elements alone and writes no masked copy
         ps = self.pad_state
-        if (ps.kind == "zero" and fill == 0) or \
-                (ps.kind == "fill" and ps.fill == fill):
-            x = self.blocks
-        else:
-            x = self._remask(fill)
+        identity = (ps.kind == "zero" and fill == 0) or \
+            (ps.kind == "fill" and ps.fill == fill)
+        valid_only = not identity and not self.is_distributed \
+            and min(self.shape) > 0
+        x = self.blocks if identity or valid_only else self._remask(fill)
         unsigned = False
         if op == "sum":
             # 32-bit integer accumulators, as the reference's sums: uint32
@@ -757,6 +838,10 @@ class DsArray:
         else:
             f = torch.amax if op == "max" else torch.amin
             red = lambda t, dims=None: f(t) if dims is None else f(t, dim=dims)
+        if valid_only:
+            combine = {"sum": torch.add, "max": torch.maximum,
+                       "min": torch.minimum}[op]
+            red = _valid_reduce(red, combine, self.shape, fill)
         xl = _pl.local(x)
 
         def total(part, dims):

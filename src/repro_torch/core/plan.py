@@ -34,6 +34,9 @@ stages:
    (``_OPT_CACHE``), so recording an unchanged DAG again skips the
    optimizer.
 
+``Plan.graph()`` records the aten ops of one run (``analysis.graphs``), the
+plane the analysis rules and the structural tests read.
+
 Block formats: a sparse ``Blockwise`` (its fn takes or gives a stacked
 COO) is a **fusion boundary** — a stacked-COO fn does not compose with
 dense per-block fns — but sparse nodes still CSE, and sparse plans cache by
@@ -64,6 +67,7 @@ from repro_torch.core.dsarray import DsArray
 from repro_torch.core.sparse import StackedCOO
 from repro_torch.core.expr import (ArrayLeaf, Blockwise, Expr, Leaf, MatMul,
                                    Transpose, _is_ds, _is_sparse)
+from repro_torch.kernels import _record
 from repro_torch.kernels.matmul import ops as _gemm
 from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import tracing as _tracing
@@ -174,7 +178,8 @@ def _use_counts(roots: Sequence[Expr]) -> Dict[int, int]:
 def _compose(parent_fn, specs):
     """One per-block function for a fused Blockwise: each spec is
     ``("arg", slot)`` (pass an input through) or ``("call", (child_fn,
-    slots))`` (inline the child's computation)."""
+    slots))`` (inline the child's computation).  Each fn it calls is a step
+    of the body to a graph recorder (``kernels._record.step``)."""
 
     def fused(*args):
         vals = []
@@ -183,8 +188,8 @@ def _compose(parent_fn, specs):
                 vals.append(args[payload])
             else:
                 cfn, idxs = payload
-                vals.append(cfn(*[args[i] for i in idxs]))
-        return parent_fn(*vals)
+                vals.append(_record.step(cfn, *[args[i] for i in idxs]))
+        return _record.step(parent_fn, *vals)
 
     return fused
 
@@ -468,9 +473,20 @@ class Plan:
             self._optimize_now()
         return self._roots
 
-    def _make_run(self):
+    def _make_run(self, owner=None):
+        """The plan's run callable.  ``owner`` (``Plan.graph``'s) is entered
+        around each node's lowering with the node's index in
+        ``emission_order``."""
         detached = _detach(self.roots, self.leaves)
         n_inputs = len(self.leaves)
+        index = ({id(n): i for i, n in enumerate(emission_order(detached))}
+                 if owner is not None else None)
+
+        def lower(node: Expr, vals):
+            if owner is None:
+                return node.lower(*vals)
+            with owner(index[id(node)]):
+                return node.lower(*vals)
 
         def run(*vals):
             if len(vals) != n_inputs:
@@ -482,7 +498,7 @@ class Plan:
                 if nid not in memo:
                     memo[nid] = (node.bind(vals[node.idx])
                                  if isinstance(node, _Input)
-                                 else node.lower(*[ev(c) for c in node.children]))
+                                 else lower(node, [ev(c) for c in node.children]))
                 return memo[nid]
 
             return tuple(ev(r) for r in detached)
@@ -492,6 +508,19 @@ class Plan:
     def leaf_values(self) -> List[torch.Tensor]:
         return [l.value.blocks if isinstance(l, Leaf) else l.value
                 for l in self.leaves]
+
+    def graph(self):
+        """The ops of one run of this plan over its leaves, on their own
+        device (``analysis.graphs.Graph``; the counterpart of the
+        reference's ``jaxpr()`` and ``lowered()``): each kernel wrapper's
+        call is one ``kernel:*`` node, and each op carries the index, in
+        ``emission_order(self.roots)``, of the plan node whose lowering
+        dispatched it.  The run is real and bypasses the plan cache and the
+        ``plan.*`` counters; the kernels' own counters move."""
+        from repro_torch.analysis import graphs
+        run = self._make_run(owner=graphs.owner)
+        with _expr.suspend_lazy():
+            return graphs.trace_ops(run, *self.leaf_values())
 
     def _launch(self, run, mode: str, **attrs) -> tuple:
         with _expr.suspend_lazy():

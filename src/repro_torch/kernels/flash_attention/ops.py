@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -33,7 +33,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale, q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, **kw)
+        return _record.kernel("flash_attention", attention_ref, q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
-    return kernel.flash_attention(q, k, v, **kw)
+    return _record.kernel("flash_attention", kernel.flash_attention, q, k, v,
+                          **kw)

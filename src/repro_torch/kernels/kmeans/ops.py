@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.kernels.kmeans import kernel
 from repro_torch.kernels.kmeans.ref import (kmeans_assign_ref,
                                             kmeans_assign_stacked_ref)
@@ -28,10 +28,12 @@ def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor,
     f32, counts ``(k,)`` f32 for the stacked ``(gn, gm, bn, bm)`` tensor."""
     _build.refuse_dtensor("kmeans_assign", blocks, centers)
     if blocks.device.type == "cpu":
-        return kmeans_assign_stacked_ref(blocks, centers, n)
+        return _record.kernel("kmeans_assign", kmeans_assign_stacked_ref,
+                              blocks, centers, n)
     if blocks.device.type != "cuda":
         raise ValueError(f"no kmeans_assign for device {blocks.device}")
-    return kernel.kmeans_assign_stacked(blocks, centers, n)
+    return _record.kernel("kmeans_assign", kernel.kmeans_assign_stacked,
+                          blocks, centers, n)
 
 
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> Stats:

@@ -11,7 +11,9 @@ A sparse A (``core.sparse.StackedCOO``) takes :func:`sparse_contract`
 instead, on any device: torch ops over the stored entries, never a densify
 of A (a sparse B densifies).  ``gemm.dispatch_cuda`` /
 ``gemm.dispatch_plain`` / ``gemm.dispatch_sparse`` count the decisions, and
-each fires the ``gemm_dispatch`` fault-injection site.
+each fires the ``gemm_dispatch`` fault-injection site.  A graph recorder
+(``analysis.graphs.trace_ops``) sees a dense product, kernel or plain
+version, as one ``kernel:stacked_matmul`` node (``kernels._record``).
 
 Inside :func:`low_memory_gemm` (entered only by ``core.plan``'s
 ``execute_eager(backend="einsum")``, the last rung of the resilience
@@ -31,7 +33,7 @@ import torch
 
 from repro_torch._faults import fire as _fire
 from repro_torch.core.sparse import StackedCOO, _acc_dtype, _to_dense_blocks
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.kernels.matmul import kernel
 from repro_torch.kernels.matmul.ref import matmul_ref, stacked_matmul_ref
 from repro_torch.obs import metrics as _metrics
@@ -165,8 +167,9 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         if a.device.type != "meta":
             _fire("gemm_dispatch", mode="sparse")
             _DISPATCHES.inc("dispatch_sparse")
-        return sparse_contract(a, b, out_dtype=out_dtype,
-                               transpose_a=transpose_a)
+        # a graph recorder tags its ops: its index selects are no remasks
+        return _record.scoped("sparse_contract", sparse_contract, a, b,
+                              out_dtype=out_dtype, transpose_a=transpose_a)
     if a.device.type == "meta":
         # shapes only (the lazy layer's metadata inference): no data is
         # read, nothing is launched and no dispatch is counted
@@ -174,16 +177,24 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     if a.device.type == "cpu":
         _fire("gemm_dispatch", mode="plain")
         _DISPATCHES.inc("dispatch_plain")
-        return stacked_matmul_ref(a, b, out_dtype=out_dtype,
-                                  transpose_a=transpose_a)
+        return _record.kernel("stacked_matmul", stacked_matmul_ref, a, b,
+                              out_dtype=out_dtype, transpose_a=transpose_a)
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM for device {a.device}")
     if a.dtype not in kernel.DTYPE_CODES or b.dtype not in kernel.DTYPE_CODES:
         raise TypeError(f"the CUDA GEMM takes f32/bf16/f16, got {a.dtype} x "
                         f"{b.dtype}")
-    common = torch.promote_types(a.dtype, b.dtype)
     _fire("gemm_dispatch", mode="cuda")
     _DISPATCHES.inc("dispatch_cuda")
+    return _record.kernel("stacked_matmul", _launch, a, b, out_dtype,
+                          transpose_a)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, out_dtype,
+            transpose_a: bool) -> torch.Tensor:
+    """The card's GEMM: both operands in their common type, then the
+    kernel (the cast is the kernel call's, as the plain version's is)."""
+    common = torch.promote_types(a.dtype, b.dtype)
     return kernel.stacked_matmul(a.to(common), b.to(common),
                                  out_dtype=out_dtype, transpose_a=transpose_a,
                                  low_memory=_LOW_MEMORY.get())

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.blocking import round_up
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _record
 from repro_torch.kernels.ssd import kernel
 from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_ref
 
@@ -29,10 +29,12 @@ def ssd_chunk(x, dt, a, b, c, *, chunk: int):
     """Chunk-local terms (see ``ref.ssd_chunk_ref``); T divides by chunk."""
     _build.refuse_dtensor("ssd_chunk", x, dt, a, b, c)
     if x.device.type == "cpu":
-        return ssd_chunk_ref(x, dt, a, b, c, chunk=chunk)
+        return _record.kernel("ssd_chunk", ssd_chunk_ref, x, dt, a, b, c,
+                              chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_chunk for device {x.device}")
-    return kernel.ssd_chunk(x, dt, a, b, c, chunk=chunk)
+    return _record.kernel("ssd_chunk", kernel.ssd_chunk, x, dt, a, b, c,
+                          chunk=chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

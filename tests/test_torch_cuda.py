@@ -1006,3 +1006,36 @@ def test_summa_matmul_on_a_one_rank_nccl_mesh(nccl_mesh, dtype, route):
     assert torch.equal(out, again)
     with pytest.raises(TypeError, match="DTensor"):
         local_matmul(C.blocks, C.blocks)
+
+
+# ---------------------------------------------------------------------------
+# The graph plane: the same graph on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_plan_graph_is_the_same_on_the_card_and_the_cpu(card):
+    """The ds-array pipeline at 64 x 48 in 8 x 8 blocks (the six-op chain,
+    one ``@`` and one folded ``matmul_ta``) recorded as one plan on the
+    card and on the CPU: the two graphs are equal node for node, each
+    ``stacked_matmul`` call one ``kernel:`` node on both (a ctypes launch
+    on the card, the plain version's ops on the CPU)."""
+    import repro_torch as pt
+    from repro_torch.core import plan
+    rng = np.random.default_rng(0)
+    xa = rng.standard_normal((64, 48), np.float32)
+    wa = rng.standard_normal((48, 32), np.float32)
+    graphs = {}
+    for dev in ("cpu", "cuda"):
+        a = pt.from_array(xa, (8, 8), device=dev)
+        w = pt.from_array(wa, (8, 8), device=dev)
+        chain = ((a.lazy() + a) * 2.0 - a).abs() * 0.5 + 0.25
+        p = plan.plan_for(chain, a.lazy() @ w, a.lazy().T @ a)
+        before = mk.stacked_matmul.launches
+        graphs[dev] = p.graph()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert mk.stacked_matmul.launches == before + 2
+    assert graphs["cuda"] == graphs["cpu"], (str(graphs["cuda"]),
+                                             str(graphs["cpu"]))
+    assert [n.op for n in graphs["cuda"] if n.kind == "kernel"] == \
+        ["kernel:stacked_matmul"] * 2

@@ -111,6 +111,11 @@ srv.pump()
 [f.result() for f in futs]
 obs.profile(ridge.predict_plan(xd))
 repro_torch.analysis.liveness.analyze(ridge.predict_plan(xd).roots)
+import repro_torch.analysis.__main__
+import repro_torch.analysis.graphs
+repro_torch.analysis.check([(xd.lazy() * 2.0 + 1.0).sum(), r.lazy().T @ x])
+assert repro_torch.analysis.__main__.main(
+    ["--device", "cpu", "--scenario", "six-op-chain"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(loaded)

@@ -23,9 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
 import repro.core as jx  # noqa: E402
-from repro.analysis import count_selects  # noqa: E402
+from repro.analysis import count_selects as jcount_selects  # noqa: E402
 from repro.core import plan as jplan  # noqa: E402
 import repro_torch as pt  # noqa: E402
+from repro_torch.analysis import count_selects  # noqa: E402
 from repro_torch.core import dsarray as pdsarray  # noqa: E402
 from repro_torch.core import expr as pexpr  # noqa: E402
 from repro_torch.core import plan as pplan  # noqa: E402
@@ -355,20 +356,24 @@ def test_six_op_chain_single_fused_body(remasks):
 
 
 def test_zero_preserving_chain_into_reduce_no_remask(remasks):
-    """As many mask passes as the reference's jaxpr has selects: none for a
-    zero-preserving chain into a sum, one for a FILL chain."""
+    """No mask pass for a zero-preserving chain into a sum, as the
+    reference's jaxpr has no select.  A FILL chain into a sum: the
+    reference pays one deferred select; the port none, since its reduce
+    reads the valid elements alone (ROADMAP.md §3)."""
     _, a, ja = mk(64, 48, 8, 8)
-    for build in (lambda t: (-((t + t) * 2.0).abs()).sum(),
-                  lambda t: ((t + 1.0) * 2.0 + 3.0).sum()):
+    for build, ref_selects in (
+            (lambda t: (-((t + t) * 2.0).abs()).sum(), 0),
+            (lambda t: ((t + 1.0) * 2.0 + 3.0).sum(), 1)):
         with pt.lazy():
             r = build(a)
         with repro.lazy():
             jr = build(ja)
+        assert jcount_selects(jplan.plan_for(jr).jaxpr()) == ref_selects
+        assert count_selects(pplan.plan_for(r).graph()) == 0
         del remasks[:]
         got = r.compute()
-        assert len(remasks) == count_selects(jplan.plan_for(jr).jaxpr())
+        assert len(remasks) == 0
         assert_same(got, jr.compute())
-    assert len(remasks) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ allocation-free disabled path, Chrome trace JSON, ``@traced``, the summary
 tree, span coverage of a warmed serve stream / a CascadeSVM fit / the
 resilience rungs / ingest chunks, stats unchanged by tracing, the threaded
 hammer, the profiler's bytes against the cost model), on ``device="cpu"``.
-The two ``costmodel-drift`` rule cases wait for the port of the analysis
-rules (ROADMAP §1 item 11) and have no counterpart yet.
+The two ``costmodel-drift`` rule cases have their counterparts in
+``tests/test_torch_analysis.py``, beside the other rules'.
 
 Then the cross-package cases, every input built from one NumPy array: per
 node of the optimized six-op chain, of the Ridge predict plan (dense and
