@@ -267,6 +267,29 @@ raises and the script exits non-zero):
     in a child process on the card must exit 0 and print exactly the
     waivers ``WAIVERS`` lists.  Both GEMM routes and the assign's mma route
     must have launched.
+15. training (zamba2-2.7b at its published widths, 54 layers, bf16 weights
+    from ``--seed`` with the norms redrawn as in phase 7, fp32 AdamW
+    moments, remat on; the batch B = 2 x T = 4096 from
+    ``pipeline_for_model``): first the autograd Functions' gradients
+    against autograd of the plain versions at small shapes on the
+    ``wgmma``, ``tile`` and SSD ``mma`` routes (the backward launches no
+    kernel); then one step's loss and gradients through the kernels against
+    the same step with the plain versions swapped in (``plain_kernels``):
+    the loss within 2·E, E = |loss(plain bf16) − loss(float32 twin)| (the
+    twin forward only, under ``no_grad``), the flattened gradients' cosine
+    at least 0.99 and norm ratio within 1 ± 0.05; six ``make_train_step``
+    steps, each launching exactly 18 ``flash_attention`` (all ``wgmma``)
+    and 108 ``ssd_chunk`` (all ``mma``): remat recomputes each group's
+    forward, the backward launches nothing; losses, grad norms and
+    parameters finite, every parameter leaf moved, ``count`` 6; s/step,
+    tokens/s and the peak memory; one more loss-and-gradients call with
+    each plain backward fenced and timed (its share of the call); greedy
+    decode of 16 tokens from the trained weights through ``serve.generate``
+    (tokens the teacher-forced argmax at a share of at least 0.5); and
+    ``launch/train.main`` at the smoke size on the card, crashed at step 12
+    and resumed from step 9's checkpoint to ``latest_step == 24``, its
+    launches counted (27 steps run).  The kernels line adds each LM
+    kernel's ``train`` launches.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -323,6 +346,21 @@ HIDDEN_BATCHES = 16
 HIDDEN_BLOCK = (8192, 2560)
 LM_CLUSTERS = 64
 ATTN_PER_FORWARD, SSD_PER_FORWARD = 9, 54
+
+# the training path (phase 15): zamba2-2.7b at full width, B = 2 x T = 4096
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-3            # AdamW peak (the driver's default), warm-up 1 step
+GRAD_COS = 0.99            # kernel step's gradients vs the plain step's
+GRAD_NORM_RATIO = 0.05     # |‖g_kernel‖ / ‖g_plain‖ − 1| at most this
+TRAIN_PEAK_GB = 75.0       # above this, T = 2048 (PERF.md)
+TRAIN_DECODE = (2, 32, 16)                     # greedy decode: batch, prompt, new
+DRIVER_ARGV = ["--arch", LM_ARCH, "--smoke", "--steps", "25", "--crash-at", "12",
+               "--ckpt-every", "10", "--log-every", "100"]
+# the driver's steps: 0-11, the crash at 12, the resume from step 9's
+# checkpoint, 10-24; per step 4 attention and 8 SSD launches (SMOKE: 4
+# layers, the shared block after every 2: 2 and 4 a forward, twice with
+# remat)
+DRIVER_STEPS = 12 + 15
 
 
 def check(cond, msg: str) -> None:
@@ -508,17 +546,25 @@ def attn_check(out, q, k, v, kw, what: str, causal_control: bool = False):
 
 class plain_kernels:
     """Within the block, the models and ``ssd_scan`` run the plain attention
-    and the plain SSD chunk instead of the CUDA kernels (the package has no
-    such switch: the script patches the two entries it calls)."""
+    and the plain SSD chunk instead of the CUDA kernels, inside the same
+    autograd Functions, so a backward is the one the kernels' forward gets
+    (the package has no such switch: the script patches the two entries it
+    calls)."""
 
     def __enter__(self):
-        from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.ssd import ops as sops
-        from repro_torch.kernels.ssd.ref import ssd_chunk_ref
         from repro_torch.models import common as cm
         self.saved = (cm.flash_attention, sops.ssd_chunk)
-        cm.flash_attention = fref.attention_ref
-        sops.ssd_chunk = ssd_chunk_ref
+
+        def attention(q, k, v, **kw):
+            return fops.AttentionFunction.apply(q, k, v, fops.attention_ref, kw)
+
+        def ssd_chunk(x, dt, a, b, c, *, chunk):
+            return sops.SSDChunkFunction.apply(x, dt, a, b, c, sops.ssd_chunk_ref,
+                                               chunk)
+
+        cm.flash_attention, sops.ssd_chunk = attention, ssd_chunk
         return self
 
     def __exit__(self, *exc):
@@ -741,11 +787,11 @@ def read_counts():
     return counts
 
 
-def expect_counts(got, want, what: str) -> None:
+def expect_counts(got, want, what: str, tag: str = "[7]") -> None:
     for name, n in want.items():
         check(got[name] == n, f"{what}: {name} launched {got[name]} times, "
                               f"the path implies {n}")
-    print(f"[7] {what}: launches {got}", flush=True)
+    print(f"{tag} {what}: launches {got}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4623,6 +4669,286 @@ def phase_analysis(torch, seed, smi, fit_plans, km, A, B, R, ridge):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+
+
+def grad_agreement(torch, got, want):
+    """(cosine, ‖got‖ / ‖want‖) of two gradient trees flattened, summed in
+    float64 over one layer slice at a time (no whole-leaf fp32 copy)."""
+    from torch.utils import _pytree as pytree
+    dot = ng = nw = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        for gs, ws in zip(g.split(1), w.split(1)) if g.ndim >= 3 else ((g, w),):
+            gf, wf = gs.reshape(-1).float(), ws.reshape(-1).float()
+            dot += float(torch.dot(gf, wf))
+            ng += float(torch.dot(gf, gf))
+            nw += float(torch.dot(wf, wf))
+    return dot / (ng * nw) ** 0.5, (ng / nw) ** 0.5
+
+
+def train_grad_cases(torch, gen, ck):
+    """The autograd Functions' gradients on the card against autograd of the
+    plain versions, at small shapes on each route the training path takes
+    (attention ``wgmma`` in bf16 and ``tile`` in f32 on the model's
+    (B, T, H, D) views; the SSD chunk's ``mma`` under ``ssd_scan``); the
+    backward launches no kernel.  Returns the max relative error."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    errs = {}
+    for dtype, route, tol in ((torch.bfloat16, "wgmma", 2e-2), (torch.float32, "tile", 1e-4)):
+        x = torch.randn((2, 300, 12, 80), generator=gen, device="cuda").to(dtype)
+        q = x[:, :, :4].transpose(1, 2).detach().requires_grad_()
+        k, v = (x[:, :, i:i + 2].transpose(1, 2).detach().requires_grad_()
+                for i in (4, 8))
+        do = torch.randn((2, 4, 300, 80), generator=gen, device="cuda").to(dtype)
+        out = routed(lambda: flash_attention(q, k, v, window=100),
+                     fk.flash_attention, route, f"attention grads, {route}")
+        before = dict(fk.flash_attention.route_launches)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        ck(fk.flash_attention.route_launches == before,
+           "the attention backward launched a kernel")
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(*plain, window=100), plain, do)
+        errs[route] = max(float((g.float() - w.float()).abs().max())
+                          / max(1.0, float(w.float().abs().max()))
+                          for g, w in zip(got, want))
+        ck(errs[route] <= tol, f"attention grads ({route}): rel err {errs[route]} > {tol}")
+    args = [t.requires_grad_() for t in ssd_inputs(torch, gen, 8, 2, 300, 64, 64, slow=True)]
+    y, h = routed(lambda: ssd_scan(*args, chunk=128), sk.ssd_chunk, "mma", "ssd grads")
+    ry, rh = torch.randn_like(y), torch.randn_like(h)
+    before = dict(sk.ssd_chunk.route_launches)
+    got = torch.autograd.grad((y * ry).sum() + (h * rh).sum(), args)
+    ck(sk.ssd_chunk.route_launches == before, "the SSD backward launched a kernel")
+    plain = [t.detach().requires_grad_() for t in args]
+    with plain_kernels():
+        y2, h2 = ssd_scan(*plain, chunk=128)
+    want = torch.autograd.grad((y2 * ry).sum() + (h2 * rh).sum(), plain)
+    errs["mma"] = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                      for g, w in zip(got, want))
+    ck(errs["mma"] <= 1e-4, f"ssd grads (mma): rel err {errs['mma']} > 1e-4")
+    print(f"[15] Function gradients vs plain autograd at small shapes, max rel err "
+          f"by route: {errs}", flush=True)
+    return errs
+
+
+def phase_train(torch, seed, smi):
+    """Phase 15: zamba2-2.7b trained at full width on the card; returns the
+    kernels' launches by route over the phase's training runs."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    from torch.utils import _pytree as pytree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline_for_model
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState, loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    ck = Checks("[15]")
+    rec = {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    train_grad_cases(torch, gen, ck)
+
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"{cfg.name}: remat {cfg.remat}, "
+                                                  f"dtype {cfg.dtype}")
+    model = build_model(cfg)
+    with torch.no_grad():           # not inference_mode: these enter autograd
+        params = model.init(gen, "cuda")
+        redraw_norms(params, gen)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    pipe = pipeline_for_model(cfg, LM_BATCH, LM_SEQ, seed=seed, device="cuda")
+    batch = pipe.batch_at(0)
+    tokens = LM_BATCH * LM_SEQ
+    per_step = {"flash_attention": 2 * ATTN_PER_FORWARD,
+                "flash_attention/wgmma": 2 * ATTN_PER_FORWARD,
+                "flash_attention/tile": 0, "flash_attention/rows": 0,
+                "ssd_chunk": 2 * SSD_PER_FORWARD, "ssd_chunk/mma": 2 * SSD_PER_FORWARD,
+                "ssd_chunk/simt": 0}
+    print(f"[15] {cfg.name}: {n_params} parameters, bf16, remat on; batch "
+          f"{tuple(batch.tokens.shape)} from pipeline_for_model", flush=True)
+
+    # 1. one step's loss and gradients: kernels against the plain versions;
+    # the limit from the float32 twin's loss, forward only (phase 7's rule)
+    with torch.no_grad(), plain_kernels():
+        params32 = pytree.tree_map(lambda t: t.float(), params)
+        twin = float(build_model(dataclasses.replace(cfg, dtype="float32")).loss(
+            params32, batch.tokens, batch.labels))
+        del params32
+    zero_counts()
+    t0 = time.perf_counter()
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    rec["kernel_step_s"] = time.perf_counter() - t0
+    expect_counts(read_counts(), per_step, "loss and gradients, kernels", "[15]")
+    with plain_kernels():
+        t0 = time.perf_counter()
+        loss_p, grads_p = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        rec["plain_step_s"] = time.perf_counter() - t0
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    e = abs(loss_p - twin)
+    cos, ratio = grad_agreement(torch, grads_k, grads_p)
+    del grads_k, grads_p
+    rec.update(loss_kernels=loss_k, loss_plain=loss_p, loss_f32_twin=twin,
+               loss_gap=abs(loss_k - loss_p), loss_limit=2 * e, grad_cos=cos,
+               grad_norm_ratio=ratio)
+    ck(abs(loss_k - loss_p) <= 2 * e, f"loss {loss_k} (kernels) vs {loss_p} (plain): "
+       f"gap beyond 2 x E = 2 x {e} (bf16 plain vs the float32 twin {twin})")
+    ck(cos >= GRAD_COS, f"gradients' cosine {cos} < {GRAD_COS}")
+    ck(abs(ratio - 1) <= GRAD_NORM_RATIO, f"gradient norm ratio {ratio}")
+    print(f"[15] loss kernels {loss_k:.6f}, plain {loss_p:.6f} (gap "
+          f"{abs(loss_k - loss_p):.3e}, limit 2 x E = {2 * e:.3e}, float32 twin "
+          f"{twin:.6f}); gradients: cosine {cos:.6f}, norm ratio {ratio:.6f}; "
+          f"step s: kernels {rec['kernel_step_s']:.3f}, plain {rec['plain_step_s']:.3f}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. six steps of make_train_step (AdamW, fp32 moments)
+    opt = make_optimizer("adamw", peak_lr=TRAIN_LR, warmup=1, total=TRAIN_STEPS)
+    state = TrainState(params=params, opt_state=opt.init(params))
+    del params
+    step_fn = make_train_step(model, opt)
+    leaves = pytree.tree_leaves(state.params)
+    samples = [t.reshape(-1)[::max(1, t.numel() // 65536)].clone() for t in leaves]
+    train = dict.fromkeys(per_step, 0)
+    losses, norms, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        b = pipe.batch_at(i)
+        zero_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = read_counts()
+        expect_counts(got, per_step, f"train step {i}", "[15]")
+        for key in train:
+            train[key] += got[key]
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = pytree.tree_leaves(state.params)
+    finite = all(bool(torch.isfinite(s).all()) for t in leaves
+                 for s in (t.split(1) if t.ndim >= 3 else (t,)))
+    moved = [not torch.equal(t.reshape(-1)[::max(1, t.numel() // 65536)], s0)
+             for t, s0 in zip(leaves, samples)]
+    del samples
+    ck(all(map(math.isfinite, losses + norms)), f"losses {losses}, grad norms {norms}")
+    ck(finite, "a parameter is not finite after training")
+    ck(all(moved), f"{moved.count(False)} of {len(moved)} parameter leaves did not move")
+    ck(int(state.step) == TRAIN_STEPS, f"count {int(state.step)} after {TRAIN_STEPS} steps")
+    s_step = statistics.median(times[1:])
+    rec.update(losses=losses, grad_norms=norms, step_s=times, s_per_step=s_step,
+               tokens_per_s=tokens / s_step, peak_gb=peak,
+               launches_per_step={k: v // TRAIN_STEPS for k, v in train.items()})
+    ck(peak <= TRAIN_PEAK_GB, f"peak {peak:.2f} GB above {TRAIN_PEAK_GB} GB")
+    print(f"[15] {TRAIN_STEPS} train steps at B {LM_BATCH} x T {LM_SEQ}: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}; "
+          f"{s_step:.3f} s/step (median of steps 2-{TRAIN_STEPS}; step 1 "
+          f"{times[0]:.3f} s), {tokens / s_step:.1f} tokens/s, peak "
+          f"{peak:.2f} GB (card: {smi})", flush=True)
+
+    # where a step's time goes: one more loss and gradients of the trained
+    # state, each plain backward fenced by synchronisations and timed (this
+    # call's time is not the step's: it pays the fences)
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    spent = {"attention_backward_s": 0.0, "ssd_backward_s": 0.0}
+
+    def fenced(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    with patched(fops, "attention_grads", fenced("attention_backward_s",
+                                                 fops.attention_grads)), \
+            patched(sops, "ssd_chunk_grads", fenced("ssd_backward_s",
+                                                    sops.ssd_chunk_grads)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grads(model, state.params, batch)
+        torch.cuda.synchronize()
+        spent["fenced_step_s"] = time.perf_counter() - t0
+    spent["plain_backward_share"] = ((spent["attention_backward_s"]
+                                      + spent["ssd_backward_s"])
+                                     / spent["fenced_step_s"])
+    rec["backward"] = spent
+    print(f"[15] one fenced loss-and-gradients call: {json.dumps(spent)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. greedy decode of the trained weights through launch/serve's path
+    nb, np_, nn = TRAIN_DECODE
+    zero_counts()
+    prompt = batch.tokens[:nb, :np_]
+    out, _ = serve.generate(model, state.params, prompt, nn)
+    got = read_counts()
+    expect_counts(got, {"flash_attention": ATTN_PER_FORWARD * (np_ + nn - 1),
+                        "flash_attention/rows": ATTN_PER_FORWARD * (np_ + nn - 1),
+                        "ssd_chunk": 0}, f"serve.generate {tuple(prompt.shape)} + {nn}",
+                  "[15]")
+    for key in train:
+        train[key] += got[key]
+    with torch.inference_mode():
+        fwd = teacher_forced(model, state.params, prompt, out)
+    agree = float((out == fwd.argmax(-1)).double().mean())
+    ck(tuple(out.shape) == (nb, nn) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+       f"decoded {tuple(out.shape)}")
+    ck(agree >= BF16_AGREE, f"decoded tokens agree with the teacher-forced argmax "
+                            f"at {agree}")
+    print(f"[15] greedy decode of the trained weights {tuple(prompt.shape)} + {nn}: "
+          f"tokens equal the teacher-forced argmax at {agree:.4f} of positions "
+          f"(limit {BF16_AGREE})", flush=True)
+    del state, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the driver at the smoke size: crash at 12, resume, finish at 24
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        train_mod.main(DRIVER_ARGV + ["--ckpt-dir", root])
+    rec["driver_s"] = time.perf_counter() - t0
+    got = read_counts()
+    latest = ckpt.latest_step(root)
+    done = [ln for ln in log.getvalue().splitlines() if ln.startswith("done:")]
+    ck(latest == 24, f"the driver's latest checkpoint is step {latest}, not 24")
+    ck(done and "failures=1" in done[0], f"the driver's last line {done}")
+    expect_counts(got, {"flash_attention/tile": 4 * DRIVER_STEPS,
+                        "flash_attention/wgmma": 0,
+                        "ssd_chunk/mma": 8 * DRIVER_STEPS, "ssd_chunk/simt": 0},
+                  f"launch.train.main {' '.join(DRIVER_ARGV)}", "[15]")
+    for key in train:
+        train[key] += got[key]
+    print(f"[15] launch.train.main {' '.join(DRIVER_ARGV)}: {done[0] if done else '?'}; "
+          f"latest checkpoint {latest}; {rec['driver_s']:.2f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    rec["launches"] = {k: v for k, v in train.items() if v}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[15] card: {smi}; train phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return train
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4710,7 +5036,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     analyzed = phase_analysis(torch, args.seed, smi, fit_plans, km, A, B, R, ridge)
-    del A, B, R, km, ridge
+    del A, B, R, km, ridge, fit_plans
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_train(torch, args.seed, smi)
+    for line in kernels:
+        if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
+            kind, route = line["name"].split(".")
+            line["launches_by_path"]["train"] = trained[f"{kind}/{route}"]
+            line["launches"] += trained[f"{kind}/{route}"]
+            if "launches_by_route" in line:
+                for r in line["launches_by_route"]:
+                    line["launches_by_route"][r] += trained[f"{kind}/{r}"]
     kernels[1]["cases"].append(served_gemm)
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
         for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),

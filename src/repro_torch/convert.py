@@ -4,7 +4,8 @@
 ``np.asarray(x.blocks)``, ``x.shape``, ``x.block_shape`` and ``x.pad_state``;
 ``kmeans_from_numpy`` rebuilds a fitted reference ``KMeans`` from its
 params, centers and iteration count; ``params_from_numpy`` carries a model's
-parameter tree.  None imports the reference.
+parameter tree and ``train_state_from_numpy`` a training state.  None
+imports the reference.
 """
 
 from __future__ import annotations
@@ -63,3 +64,14 @@ def params_from_numpy(tree, device="cuda"):
         bits = torch.from_numpy(np.array(arr.view(np.uint16)))
         return bits.view(torch.bfloat16).to(dev)
     return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def train_state_from_numpy(params, opt_state, device="cuda"):
+    """A ``train.TrainState`` from the reference's ``TrainState`` leaves as
+    NumPy arrays (``jax.tree_util.tree_map(np.asarray, ...)`` of its
+    ``params`` and ``opt_state``: AdamW's ``m``, ``v`` and int32 ``count``,
+    or Adafactor's factored ``v``), with the same dtypes."""
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    return TrainState(params=params_from_numpy(params, dev),
+                      opt_state=params_from_numpy(opt_state, dev))

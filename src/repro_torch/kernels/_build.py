@@ -44,6 +44,17 @@ def refuse_dtensor(what: str, *operands) -> None:
                             f"to_local() shards or use core.shmap_ops")
 
 
+def refuse_grad(what: str, *operands) -> None:
+    """Raise ``TypeError`` where grad mode is on and an operand requires
+    grad, on any device: the kernel ``what`` has no backward, and its
+    launch would return a result cut off from the gradient asked for.
+    Detach the operands, or run under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in operands):
+        raise TypeError(f"{what} has no backward: an operand requires grad "
+                        f"(detach it or run under torch.no_grad())")
+
+
 class KernelError(RuntimeError):
     """A kernel failed to build or to launch.  Deterministic: the same call
     fails again, so ``resilience.run_resilient`` neither retries it nor

@@ -70,6 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Attention on the card; see ``ref.attention_ref`` for the function."""
     _build.refuse_dtensor("flash_attention", q, k, v)
+    _build.refuse_grad("flash_attention", q, k, v)
     tensors = (q, k, v)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_attention wants CUDA tensors on one device, "

@@ -128,6 +128,7 @@ def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor, n: int):
     contiguous f32 ``(gn, gm, bn, bm)`` tensor, ``centers`` contiguous f32
     ``(k, gm*bm)`` on the same device.  ``route`` picks the kernel."""
     _build.refuse_dtensor("kmeans_assign_stacked", blocks, centers)
+    _build.refuse_grad("kmeans_assign_stacked", blocks, centers)
     if blocks.device.type != "cuda" or centers.device != blocks.device:
         raise ValueError(f"kmeans_assign wants CUDA tensors on one device, got "
                          f"{blocks.device} and {centers.device}")

@@ -25,8 +25,11 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def kmeans_assign_stacked(blocks: torch.Tensor, centers: torch.Tensor,
                           n: int) -> Stats:
     """labels ``(gn*bn,)`` int32 (-1 for rows >= n), sums ``(k, gm*bm)``
-    f32, counts ``(k,)`` f32 for the stacked ``(gn, gm, bn, bm)`` tensor."""
+    f32, counts ``(k,)`` f32 for the stacked ``(gn, gm, bn, bm)`` tensor.
+    An operand that requires grad under grad mode raises ``TypeError``: the
+    assignment has no backward."""
     _build.refuse_dtensor("kmeans_assign", blocks, centers)
+    _build.refuse_grad("kmeans_assign", blocks, centers)
     if blocks.device.type == "cpu":
         return _record.kernel("kmeans_assign", kmeans_assign_stacked_ref,
                               blocks, centers, n)
@@ -40,6 +43,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> Stats:
     """The reference's 2-D form: labels ``(n,)`` int32, sums ``(k, d)`` f32,
     counts ``(k,)`` f32 for samples ``x (n, d)``."""
     _build.refuse_dtensor("kmeans_assign", x, centers)
+    _build.refuse_grad("kmeans_assign", x, centers)
     n, d = x.shape
     labels, sums, counts = kmeans_assign_stacked(
         x.reshape(1, 1, n, d).contiguous(),

@@ -153,6 +153,7 @@ def stacked_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype: torch.dtype,
     ``low_memory=True`` holds the split-K workspace within
     :data:`LOW_MEMORY_WORKSPACE`."""
     _build.refuse_dtensor("stacked_matmul", a, b)
+    _build.refuse_grad("stacked_matmul", a, b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"stacked_matmul wants CUDA tensors on one device, "
                          f"got {a.device} and {b.device}")

@@ -147,7 +147,9 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     stacked layout ``(gk, gi, bk, bn)``; the kernel reads it transposed.
     Operands of two different float types are cast to their common type
     first (the kernel takes one input type).  A ``DTensor`` operand raises
-    ``TypeError`` on any device: pass each rank's shard.
+    ``TypeError`` on any device: pass each rank's shard.  So does a dense
+    operand that requires grad under grad mode: the GEMM has no backward
+    (a sparse A's torch ops keep theirs).
     """
     _build.refuse_dtensor("local_matmul", a, b)
     if transpose_a:
@@ -170,6 +172,7 @@ def local_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         # a graph recorder tags its ops: its index selects are no remasks
         return _record.scoped("sparse_contract", sparse_contract, a, b,
                               out_dtype=out_dtype, transpose_a=transpose_a)
+    _build.refuse_grad("stacked_matmul", a, b)
     if a.device.type == "meta":
         # shapes only (the lazy layer's metadata inference): no data is
         # read, nothing is launched and no dispatch is counted

@@ -63,6 +63,7 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int):
     """Chunk-local SSD terms on the card; see ``ref.ssd_chunk_ref``."""
     _build.refuse_dtensor("ssd_chunk", x, dt, a, b, c)
+    _build.refuse_grad("ssd_chunk", x, dt, a, b, c)
     tensors = (x, dt, a, b, c)
     if any(v.dtype != torch.float32 for v in tensors):
         raise TypeError(f"ssd_chunk takes f32, got {[v.dtype for v in tensors]}")

@@ -3,7 +3,9 @@
     y = y_intra + (C ⊙ exp(ℓ)) @ h_prev_chunk
 
 ``ssd_chunk`` launches the CUDA kernel (``kernel.ssd_chunk``) for a CUDA
-tensor and takes the plain version (``ref.ssd_chunk_ref``) for a CPU tensor.
+tensor and takes the plain version (``ref.ssd_chunk_ref``) for a CPU tensor,
+either inside :class:`SSDChunkFunction`, whose backward is the plain
+chunk's gradient, recomputed (``ref.ssd_chunk_grads``; no kernel launch).
 The recurrence over chunk states runs as a loop over chunks in torch ops: it
 is what the reference's ``associative_scan`` computes, in another order.
 B and C may be per group: ``(BG, T, S)`` with BG dividing BH, head ``i``
@@ -19,22 +21,44 @@ import torch
 from repro_torch.core.blocking import round_up
 from repro_torch.kernels import _build, _record
 from repro_torch.kernels.ssd import kernel
-from repro_torch.kernels.ssd.ref import ssd_chunk_ref, ssd_ref
+from repro_torch.kernels.ssd.ref import ssd_chunk_grads, ssd_chunk_ref, ssd_ref
 
 __all__ = ["ssd_chunk", "ssd_scan", "ssd_decode_step", "ssd_chunk_ref",
-           "ssd_ref"]
+           "ssd_chunk_grads", "ssd_ref", "SSDChunkFunction"]
+
+
+class SSDChunkFunction(torch.autograd.Function):
+    """``forward(x, dt, a, b, c, forward_fn, chunk)`` =
+    ``forward_fn(x, dt, a, b, c, chunk=chunk)`` (the kernel or the plain
+    version), with the gradient of the plain version for all five inputs:
+    ``ref.ssd_chunk_grads`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, forward_fn, chunk):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return forward_fn(x, dt, a, b, c, chunk=chunk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        return (*ssd_chunk_grads(*ctx.saved_tensors, grads, chunk=ctx.chunk),
+                None, None)
 
 
 def ssd_chunk(x, dt, a, b, c, *, chunk: int):
-    """Chunk-local terms (see ``ref.ssd_chunk_ref``); T divides by chunk."""
+    """Chunk-local terms (see ``ref.ssd_chunk_ref``); T divides by chunk.
+    Differentiable in x, dt, a, b and c."""
     _build.refuse_dtensor("ssd_chunk", x, dt, a, b, c)
     if x.device.type == "cpu":
-        return _record.kernel("ssd_chunk", ssd_chunk_ref, x, dt, a, b, c,
-                              chunk=chunk)
-    if x.device.type != "cuda":
+        forward_fn = ssd_chunk_ref
+    elif x.device.type == "cuda":
+        forward_fn = kernel.ssd_chunk
+    else:
         raise ValueError(f"no ssd_chunk for device {x.device}")
-    return _record.kernel("ssd_chunk", kernel.ssd_chunk, x, dt, a, b, c,
-                          chunk=chunk)
+    return _record.kernel("ssd_chunk", SSDChunkFunction.apply, x, dt, a, b, c,
+                          forward_fn, chunk)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the SSD: the chunk-local function of the TPU
 kernel (``repro.kernels.ssd.kernel._ssd_chunk_kernel``), which is the CPU
 path of ``ops.ssd_chunk`` and what ``chip_smoke.py`` holds the CUDA kernel
-to, and the sequential-recurrence oracle (``repro.kernels.ssd.ref``)."""
+to, its gradient (the backward of ``ops.ssd_chunk`` on both devices), and
+the sequential-recurrence oracle (``repro.kernels.ssd.ref``)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,26 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     c_dec = cc * torch.exp(ell)[..., None]
     return (y_intra.reshape(bh, t, p).to(x.dtype), states,
             c_dec.reshape(bh, t, s).to(x.dtype), torch.exp(ell[..., -1]))
+
+
+def ssd_chunk_grads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, grads, *, chunk: int
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_chunk_ref`: (dx, ddt, da, db, dc) for the
+    gradients ``grads`` of its four outputs (``None`` for an output that
+    passes none), each in its input's dtype.  The plain chunk is recomputed
+    in fp32 under autograd; per-group B and C (``BG < BH``) sum their
+    gradients over each group's heads (``group_rows`` repeats them)."""
+    leaves = [t.detach().float().requires_grad_() for t in (x, dt, a, b, c)]
+    with torch.enable_grad():
+        outs = ssd_chunk_ref(*leaves, chunk=chunk)
+    pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, grads) if g is not None]
+    if not pairs:
+        return tuple(torch.zeros_like(t) for t in (x, dt, a, b, c))
+    got = torch.autograd.grad([o for o, _ in pairs], leaves,
+                              [g for _, g in pairs], allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g.to(t.dtype)
+                 for g, t in zip(got, (x, dt, a, b, c)))
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

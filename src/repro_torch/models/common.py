@@ -1,6 +1,6 @@
 """Shared model building blocks, the parts of ``repro.models.common`` that the
-hybrid uses: norms, RoPE, attention through the fused kernel, MLPs and init
-helpers.
+hybrid uses: norms, RoPE, attention through the fused kernel, MLPs, the
+losses and init helpers.
 
 Everything is functional over parameter trees of plain dicts.  Products take
 the activation dtype with fp32 accumulation inside the GEMM and round once to
@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -110,6 +111,69 @@ def mlp_init(gen: torch.Generator, d: int, f: int, mlp_type: str, dtype,
 
 
 # ---------------------------------------------------------------------------
+# Losses (the reference's, without its mesh branches: vocab-parallel heads
+# and the fsdp token chunk belong to training over a mesh)
+# ---------------------------------------------------------------------------
+
+
+def _largest_divisor_leq(n: int, target: int) -> int:
+    target = max(1, min(n, target))
+    for c in range(target, 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
+def _chunk_nll(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               softcap: float, z_loss: float) -> torch.Tensor:
+    """Summed next-token NLL (+ z-loss) of one token chunk: h (B, sc, D)."""
+    logits = h.float() @ head.float()                   # (B, sc, V) fp32
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, labels[..., None].long())[..., 0]
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse ** 2
+    return nll.sum()
+
+
+def chunked_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, *, softcap: float = 0.0,
+                    z_loss: float = 1e-4, token_chunk: int = 8192
+                    ) -> torch.Tensor:
+    """Token-mean cross-entropy (+ z-loss) from the final hidden states
+    (B, T, D) without the whole (B, T, V) logits: the sequence is cut into
+    chunks of ``sc`` tokens (the largest divisor of T up to
+    ``token_chunk / B``), each chunk's fp32 logits formed inside a body
+    checkpointed under grad mode, so the backward recomputes them too (the
+    reference's ``jax.checkpoint`` over a ``lax.scan``)."""
+    b, t, _ = hidden.shape
+    sc = _largest_divisor_leq(t, max(1, token_chunk // max(b, 1)))
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, t, sc):
+        args = (hidden[:, lo:lo + sc], head, labels[:, lo:lo + sc], softcap,
+                z_loss)
+        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                         if remat else _chunk_nll(*args))
+    return total / (b * t)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 1e-4,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross-entropy (+ z-loss) in fp32. logits (..., V)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    nll = lse - lf.gather(-1, labels[..., None].long())[..., 0]
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse ** 2
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+# ---------------------------------------------------------------------------
 # Init helpers: the reference's shapes, scales and distributions (not its
 # bits: torch cannot replay jax.random)
 # ---------------------------------------------------------------------------
@@ -136,6 +200,14 @@ def _stack(trees) -> Params:
     return {key: (_stack([t[key] for t in trees]) if isinstance(trees[0][key], dict)
                   else torch.stack([t[key] for t in trees]))
             for key in trees[0]}
+
+
+def unstack(tree: Params, n: int):
+    """The ``n`` per-layer trees of a stacked parameter tree (views, no
+    copy), each leaf unbound once along its layer axis."""
+    parts = {key: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for key, v in tree.items()}
+    return [{key: part[i] for key, part in parts.items()} for i in range(n)]
 
 
 def layer(tree: Params, i: int) -> Params:

@@ -1,14 +1,17 @@
-"""Zamba2-style hybrid, the port of ``repro.models.hybrid`` for inference:
-``n_layers`` Mamba-2 blocks and, after every ``share_period`` of them, ONE
-shared transformer block (the same parameters every application).  The
+"""Zamba2-style hybrid, the port of ``repro.models.hybrid``: ``n_layers``
+Mamba-2 blocks and, after every ``share_period`` of them, ONE shared
+transformer block (the same parameters every application).  The
 reference's ``lax.scan`` over the stacked layer axis is a Python loop here;
 the shared block's KV caches are per application (stacked on the first
-axis).
+axis).  Training takes ``loss_fn``; with ``cfg.remat`` each group of
+``share_period`` Mamba layers and the shared block is checkpointed, as the
+reference's ``jax.checkpoint`` of its group body.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 from repro_torch.models import ssm
@@ -39,16 +42,36 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
+def _group(layers, shared: Params, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """One group: the Mamba layers ``layers`` (per-layer trees) and the
+    shared block."""
+    for lp in layers:
+        x, _ = ssm.mamba_apply(lp, x, cfg)
+    x, _ = tf._block_apply(shared, x, positions, cfg, cfg.attn_window)
+    return x
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens (B, T) -> (final hidden states (B, T, D) in the activation
-    dtype, aux 0.0)."""
+    dtype, aux 0.0).  Under grad mode with ``cfg.remat`` each group keeps
+    only its input for the backward and runs again there (its kernels
+    launch twice a step); without grad it is a plain loop.  The stacked
+    layer leaves are unbound once, so the backward stacks each leaf's
+    per-layer gradients once (indexing a layer per call would write a
+    full-size gradient of the stack per layer)."""
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for i in range(cfg.n_layers):
-        x, _ = ssm.mamba_apply(cm.layer(params["layers"], i), x, cfg)
-        if (i + 1) % cfg.share_period == 0:
-            x, _ = tf._block_apply(params["shared"], x, positions, cfg,
-                                   cfg.attn_window)
+    layers = cm.unstack(params["layers"], cfg.n_layers)
+    remat = cfg.remat and torch.is_grad_enabled()
+    per = cfg.share_period
+    for g in range(n_apps(cfg)):
+        group = layers[g * per:(g + 1) * per]
+        if remat:
+            x = checkpoint(_group, group, params["shared"], cfg, x, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _group(group, params["shared"], cfg, x, positions)
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
@@ -60,6 +83,14 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens (B, T) -> (logits (B, T, V) f32, aux 0.0)."""
     x, aux = forward_hidden(params, cfg, tokens)
     return _logits(params, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, patches=None) -> torch.Tensor:
+    """Next-token cross-entropy (+ z-loss), token mean, fp32 scalar."""
+    del patches
+    hidden, _ = forward_hidden(params, cfg, tokens)
+    return cm.chunked_lm_loss(hidden, params["lm_head"], labels)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:

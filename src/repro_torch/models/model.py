@@ -4,6 +4,7 @@ interface per architecture family.
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
     logits, aux = model.forward(params, tokens)
+    loss = model.loss(params, tokens, labels)
     cache = model.init_cache(batch, max_len, device="cuda")
     logits, cache = model.decode_step(params, cache, tokens)
 
@@ -34,6 +35,9 @@ class Model:
 
     def forward(self, params, tokens):
         return self.module.forward(params, self.cfg, tokens)
+
+    def loss(self, params, tokens, labels, patches=None):
+        return self.module.loss_fn(params, self.cfg, tokens, labels, patches)
 
     def init_cache(self, batch: int, max_len: int, device="cuda"):
         return self.module.init_cache(self.cfg, batch, max_len,

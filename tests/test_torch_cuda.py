@@ -407,6 +407,75 @@ def test_ssd_chunk_bf16_raises(card):
         sk.ssd_chunk(x.bfloat16(), dt, a, b, c, chunk=16)
 
 
+@pytest.mark.parametrize("dtype,route,window,cap", [
+    (torch.bfloat16, "wgmma", 0, 0.0), (torch.bfloat16, "wgmma", 40, 0.0),
+    (torch.float32, "tile", 0, 0.0), (torch.float32, "tile", 0, 30.0)])
+def test_flash_attention_grads_on_the_card_match_plain(card, dtype, route, window,
+                                                       cap):
+    """``ops.flash_attention`` under autograd on the card: its forward
+    launches the kernel once by ``route``, its backward none, and its
+    gradients are autograd's of the plain version on the same inputs
+    (the model's (B, T, H, D) views, GQA 4/2, D = 80)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=card).manual_seed(window)
+    x = torch.randn((2, 200, 12, 80), generator=g, device=card).to(dtype)
+    q = x[:, :, :4].transpose(1, 2).detach().requires_grad_()
+    k, v = (x[:, :, i:i + 2].transpose(1, 2).detach().requires_grad_()
+            for i in (4, 8))
+    do = torch.randn((2, 4, 200, 80), generator=g, device=card).to(dtype)
+    kw = dict(causal=True, window=window, softcap=cap)
+    out = _routed(fk.flash_attention.route_launches, route,
+                  lambda: flash_attention(q, k, v, **kw))
+    before = dict(fk.flash_attention.route_launches)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert fk.flash_attention.route_launches == before
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, **kw), plain, do)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g_, w_ in zip("qkv", got, want):
+        assert g_.dtype == dtype
+        scale = max(1.0, float(w_.float().abs().max()))
+        torch.testing.assert_close(g_.float(), w_.float(), atol=atol * scale,
+                                   rtol=0, msg=f"d{name}")
+
+
+def test_ssd_scan_grads_on_the_card_match_plain(card):
+    """``ssd_scan`` under autograd on the card: the chunk kernel launches
+    once on the mma route, its backward none, and the gradients of all six
+    inputs (B, C per group) are autograd's of the scan over the plain
+    chunk."""
+    from repro_torch.kernels.ssd import ops as sops
+    args = [t.requires_grad_() for t in
+            _ssd_inputs(card, 8, 2, 300, 64, 64, True, seed=11)]
+    gen = torch.Generator(device=card).manual_seed(12)
+    y, h = _routed(sk.ssd_chunk.route_launches, "mma",
+                   lambda: ssd_scan(*args, chunk=128))
+    ry = torch.randn(y.shape, generator=gen, device=card)
+    rh = torch.randn(h.shape, generator=gen, device=card)
+    before = dict(sk.ssd_chunk.route_launches)
+    got = torch.autograd.grad((y * ry).sum() + (h * rh).sum(), args)
+    assert sk.ssd_chunk.route_launches == before
+    plain = [t.detach().requires_grad_() for t in args]
+    saved = sops.ssd_chunk
+    sops.ssd_chunk = ssd_chunk_ref
+    try:
+        y2, h2 = ssd_scan(*plain, chunk=128)
+    finally:
+        sops.ssd_chunk = saved
+    want = torch.autograd.grad((y2 * ry).sum() + (h2 * rh).sum(), plain)
+    for name, g_, w_ in zip(("x", "dt", "a", "b", "c", "h0"), got, want):
+        scale = max(1.0, float(w_.abs().max()))
+        torch.testing.assert_close(g_, w_, atol=1e-4 * scale, rtol=1e-4, msg=name)
+
+
+def test_kernels_without_backward_refuse_grad_on_the_card(card):
+    a = torch.ones((1, 1, 8, 8), device=card, requires_grad=True)
+    with pytest.raises(TypeError, match="stacked_matmul has no backward"):
+        local_matmul(a, a)
+    with torch.no_grad():
+        assert not local_matmul(a, a).requires_grad
+
+
 def _lazy_inputs(card, n, m, bn, seed):
     import repro_torch as pt
     g = torch.Generator(device=card).manual_seed(seed)

@@ -148,3 +148,97 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.flash_attention(t, t, t, causal=True, window=0, softcap=0.0,
                                sm_scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd Function's backward (the plain version's gradient,
+# recomputed in q-chunks) against jax.grad of the reference's attention_xla
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _jax_attention_grads(q, k, v, do, *, q_chunk, **kw):
+    import jax
+    from repro.models.common import attention_xla
+
+    def f(q, k, v):
+        out = attention_xla(q, k, v, q_chunk=q_chunk, **kw)
+        return jnp.sum(out * jnp.asarray(do))
+
+    return [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))]
+
+
+@pytest.mark.parametrize("tq,hq,hkv,window,cap,qoff,q_chunk", [
+    (48, 4, 2, 0, 0.0, 0, 1024),     # GQA 4/2, causal
+    (48, 4, 2, 11, 0.0, 0, 1024),    # sliding window
+    (48, 4, 4, 0, 20.0, 0, 1024),    # soft-cap
+    (64, 4, 2, 9, 0.0, 0, 16),       # Tq > the reference's q chunk, banded
+    (64, 2, 1, 0, 30.0, 0, 16),      # Tq > q chunk, dense chunks, soft-cap
+    (32, 4, 2, 0, 0.0, 24, 1024),    # q_offset: queries at 24 .. 55
+])
+def test_flash_attention_grads_match_jax(tq, hq, hkv, window, cap, qoff, q_chunk):
+    from repro_torch.kernels.flash_attention.ref import attention_grads
+    tk = tq + qoff
+    q, k, v = _qkv(2, hq, hkv, tq, tk, 16, seed=tq + window + qoff)
+    do = np.random.default_rng(q_chunk).normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=True, window=window, softcap=cap, q_offset=qoff)
+    want = _jax_attention_grads(q, k, v, do, q_chunk=q_chunk, **kw)
+    tq_, tk_, tv_ = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = flash_attention(tq_, tk_, tv_, **kw)
+    got = torch.autograd.grad(out, (tq_, tk_, tv_), torch.from_numpy(do))
+    # the backward's own q-chunks, cut at the reference's chunk
+    chunked = attention_grads(*map(torch.from_numpy, (q, k, v, do)),
+                              q_chunk=q_chunk, **kw)
+    for g, c, w in zip(got, chunked, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+        np.testing.assert_allclose(c.numpy(), w, **GRAD_TOL)
+
+
+def test_flash_attention_grads_honour_kv_len():
+    """Keys at positions >= kv_len take no gradient; the others take the
+    reference's gradient over the first kv_len keys."""
+    q, k, v = _qkv(2, 4, 2, 8, 40, 16, seed=3)
+    do = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    want = _jax_attention_grads(q, k[:, :, :29], v[:, :, :29], do, q_chunk=1024,
+                                causal=False)
+    tq_, tk_, tv_ = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = flash_attention(tq_, tk_, tv_, causal=False, kv_len=29)
+    dq, dk, dv = torch.autograd.grad(out, (tq_, tk_, tv_), torch.from_numpy(do))
+    np.testing.assert_allclose(dq.numpy(), want[0], **GRAD_TOL)
+    for g, w in ((dk, want[1]), (dv, want[2])):
+        np.testing.assert_allclose(g[:, :, :29].numpy(), w, **GRAD_TOL)
+        assert not g[:, :, 29:].any()
+
+
+def test_flash_attention_grads_keep_the_input_dtype():
+    """bf16 q, k, v: fp32 inside, bf16 grads out, within bf16 rounding of
+    the fp32 gradient."""
+    q, k, v = _qkv(1, 4, 2, 24, 24, 16, seed=9)
+    do = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    bf = [torch.from_numpy(t).to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*bf)
+    assert out.dtype == torch.bfloat16
+    got = torch.autograd.grad(out, bf, torch.from_numpy(do).to(torch.bfloat16))
+    f32 = [t.detach().float().requires_grad_() for t in bf]
+    want = torch.autograd.grad(flash_attention(*f32), f32,
+                               torch.from_numpy(do).to(torch.bfloat16).float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w, rtol=1e-2, atol=1e-2 * float(w.abs().max()))
+
+
+def test_flash_attention_backward_launches_nothing(monkeypatch):
+    """The backward recomputes with the plain gradient: the forward version
+    runs once per call, and the backward calls it never."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    calls = []
+    plain = fops.attention_ref
+    monkeypatch.setattr(fops, "attention_ref",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    q, k, v = (torch.from_numpy(t).requires_grad_() for t in _qkv(1, 2, 2, 8, 8, 16, 1))
+    out = flash_attention(q, k, v)
+    out.sum().backward()
+    assert len(calls) == 1 and q.grad is not None and k.grad.abs().sum() > 0

@@ -13,7 +13,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch as pt  # noqa: E402
+import repro_torch.configs  # noqa: E402
+import repro_torch.data  # noqa: E402
+import repro_torch.launch.train  # noqa: E402
+import repro_torch.models.model  # noqa: E402
+import repro_torch.optim  # noqa: E402
 import repro_torch.serve  # noqa: E402
+import repro_torch.train  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -116,6 +122,19 @@ import repro_torch.analysis.graphs
 repro_torch.analysis.check([(xd.lazy() * 2.0 + 1.0).sum(), r.lazy().T @ x])
 assert repro_torch.analysis.__main__.main(
     ["--device", "cpu", "--scenario", "six-op-chain"]) == 0
+import repro_torch.optim
+import repro_torch.data
+import repro_torch.train
+import repro_torch.distributed
+import repro_torch.launch.train
+import repro_torch.convert
+st = repro_torch.launch.train.main(
+    ["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "16", "--ckpt-dir", os.path.join(d, "t"),
+     "--optimizer", "adafactor"])
+repro_torch.data.pipeline_for_model(
+    repro_torch.configs.get_smoke_config("zamba2-2.7b"), 2, 8,
+    device="cpu").batch_at(0).as_dsarray()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(loaded)
@@ -158,6 +177,15 @@ def test_default_device_is_cuda_and_never_falls_back():
                  lambda: pt.CascadeSVM().fit(arr, [0, 1, 0, 1]),
                  lambda: repro_torch.serve.ModelRegistry(),
                  lambda: repro_torch.serve.batching.representative_input(
-                     repro_torch.serve.BucketSpec(4).buckets()[0])):
+                     repro_torch.serve.BucketSpec(4).buckets()[0]),
+                 lambda: repro_torch.data.SyntheticPipeline(
+                     repro_torch.data.PipelineConfig()),
+                 lambda: repro_torch.train.init_state(
+                     repro_torch.models.model.build_model(
+                         repro_torch.configs.get_smoke_config("zamba2-2.7b")),
+                     repro_torch.optim.make_optimizer("adamw"),
+                     torch.Generator()),
+                 lambda: repro_torch.launch.train.main(
+                     ["--arch", "zamba2-2.7b", "--smoke"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -208,3 +208,70 @@ def test_3xtf32_products_meet_the_card_tolerance_and_1xtf32_does_not(slow):
     assert _beyond_card_tolerance(states3, states_ref) == 0
     assert _beyond_card_tolerance(y1, y_ref) > 0
     assert _beyond_card_tolerance(states1, states_ref) > 0
+
+
+# ---------------------------------------------------------------------------
+# gradients: the chunk Function's backward (the plain chunk's gradient,
+# recomputed) under ssd_scan, against jax.grad of the reference's
+# ssd_chunked
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,t,h,g,p,s,chunk,with_h0", [
+    (2, 40, 4, 1, 8, 8, 16, True),     # B, C per group (BG < BH), T ragged
+    (1, 32, 2, 2, 8, 4, 16, False),    # one group per head, no h0
+])
+def test_ssd_scan_grads_match_jax(b, t, h, g, p, s, chunk, with_h0):
+    import jax
+    from repro.models.ssm import ssd_chunked
+    rng = np.random.default_rng(t + h + g)
+    x = rng.normal(size=(b, t, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(b, t, h)).astype(np.float32)
+    a = (-rng.uniform(0.5, 2.0, size=(h,))).astype(np.float32)
+    bm = rng.normal(size=(b, t, g, s)).astype(np.float32)
+    cm = rng.normal(size=(b, t, g, s)).astype(np.float32)
+    h0 = rng.normal(size=(b, h, s, p)).astype(np.float32)
+    ry = rng.normal(size=(b, t, h, p)).astype(np.float32)
+    rh = rng.normal(size=(b, h, s, p)).astype(np.float32)
+
+    def jloss(x, dt, a, bm, cm, h0):
+        y, hf = ssd_chunked(x, dt, a, bm, cm, h0 if with_h0 else None,
+                            chunk=chunk)
+        return jnp.sum(y * ry) + jnp.sum(hf * rh)
+
+    want = jax.jit(jax.grad(jloss, argnums=tuple(range(6 if with_h0 else 5))))(
+        *map(jnp.asarray, (x, dt, a, bm, cm, h0)))
+
+    leaves = [torch.from_numpy(v).requires_grad_() for v in (x, dt, a, bm, cm, h0)]
+    tx, tdt, ta, tb, tc, th0 = leaves
+
+    def grouped(m):      # (B, T, G, S) -> ssd_scan's (B·G, T, S)
+        return m.transpose(1, 2).reshape(b * g, t, s)
+
+    y, hf = ssd_scan(tx.transpose(1, 2).reshape(b * h, t, p),
+                     tdt.transpose(1, 2).reshape(b * h, t), ta.repeat(b),
+                     grouped(tb), grouped(tc),
+                     th0.reshape(b * h, s, p) if with_h0 else None, chunk=chunk)
+    loss = ((y.reshape(b, h, t, p).transpose(1, 2) * torch.from_numpy(ry)).sum()
+            + (hf.reshape(b, h, s, p) * torch.from_numpy(rh)).sum())
+    got = torch.autograd.grad(loss, leaves[:len(want)])
+    for name, gt, w in zip(("x", "dt", "a", "b", "c", "h0"), got, want):
+        w = np.asarray(w)
+        assert tuple(gt.shape) == w.shape, name
+        np.testing.assert_allclose(gt.numpy(), w, rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_ssd_chunk_backward_launches_nothing(monkeypatch):
+    """The chunk's forward version runs once per call; its backward
+    recomputes the plain chunk and never calls the forward version."""
+    from repro_torch.kernels.ssd import ops as sops
+    calls = []
+    plain = sops.ssd_chunk_ref
+    monkeypatch.setattr(sops, "ssd_chunk_ref",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    args = [torch.from_numpy(v).requires_grad_()
+            for v in _inputs(2, 32, 8, 4, seed=5)[:5]]
+    y, h = ssd_scan(*args, chunk=16)
+    (y.sum() + h.sum()).backward()
+    assert len(calls) == 1 and all(v.grad is not None for v in args)
