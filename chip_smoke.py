@@ -290,6 +290,34 @@ raises and the script exits non-zero):
     and resumed from step 9's checkpoint to ``latest_step == 24``, its
     launches counted (27 steps run).  The kernels line adds each LM
     kernel's ``train`` launches.
+16. the dense and SSM families at their published widths, bf16 weights
+    from ``--seed`` with the norms redrawn (``redraw_family_norms``), each
+    step's launch counts zeroed before and read after.  gemma2-2b (26
+    layers, d_model 2,304, 8 query heads of 256 over 4 KV heads, vocab
+    256,000, window 4,096 on the local layers, soft-caps 50 and 30):
+    ``forward`` on B 1 x T 8,192 (the window cuts), exactly 26
+    ``flash_attention`` launches, all ``wgmma``, its logits within 2·E of
+    the same forward with the plain attention (E: the plain bf16 forward
+    against its float32 twin; the forward without its windows must fail),
+    then timed (median of 3 warm runs) and profiled with 2 decode steps;
+    one layer's attention at that shape, windowed (against its plain
+    version; the same attention without its window must fail the limit)
+    and global, timed beside their bounds over the pairs each sees, the
+    plain version and SDPA (causal, no window or soft-cap); decode
+    attention against a full 4,096-slot rolling cache (rows); float32
+    ``decode_step`` teacher-forced over 48 tokens, and a check config with
+    ``attn_window=32`` whose rolling buffers wrap (its 16 steps after the
+    wrap against the windowed forward; the forward without that window must
+    fail); ``launch.serve --arch gemma2-2b`` with 4 requests of 256 + 64
+    tokens.  mamba2-370m (48 layers, d_model 1,024, 32 heads of 64, state
+    128, chunk 128, vocab 50,280): ``forward`` on B 8 x T 2,048, exactly 48
+    ``ssd_chunk`` launches, all ``mma``, against the plain-SSD forward (the
+    forward without the inter-chunk term must fail), timed and profiled;
+    ``ssd_chunk`` alone at its shape (BH 256, BG 8, S 128) against its
+    plain version (TF32-rounded x, B, C must fail) and timed; float32
+    decode teacher-forced; ``launch.serve --arch mamba2-370m`` as above.
+    The kernels line adds the phase's launches (``families``) and the new
+    shapes as ``cases``.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -758,6 +786,106 @@ def teacher_forced(model, params, prompt, got):
     import torch
     logits, _ = model.forward(params, torch.cat([prompt, got[:, :-1]], dim=1))
     return logits[:, prompt.shape[1] - 1:].float()
+
+
+def rms(torch, a, b=None) -> float:
+    """Root mean square of ``a`` (or ``a - b``) in float64, 256 rows at a
+    time (gemma2's logits at 8,192 tokens are 2.1 G elements)."""
+    a2 = a.reshape(-1, a.shape[-1])
+    b2 = None if b is None else b.reshape(-1, b.shape[-1])
+    total = 0.0
+    for lo in range(0, a2.shape[0], 256):
+        d = a2[lo:lo + 256].double()
+        if b2 is not None:
+            d = d - b2[lo:lo + 256].double()
+        total += float(d.pow(2).sum())
+    return (total / a.numel()) ** 0.5
+
+
+def without_inter_chunk(model, params, tokens):
+    """The logits of ``model``'s forward with ``ssd_scan``'s inter-chunk
+    term dropped (a control)."""
+    from repro_torch.models import ssm as ssm_mod
+    with patched(ssm_mod, "ssd_scan", ssd_without_inter):
+        return model.forward(params, tokens)[0]
+
+
+def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
+    """``forward`` through the kernels (its launches exactly ``per_fwd``)
+    against the same forward with the plain versions.  Limit: a bf16
+    forward lies about E = rms(plain bf16 - float32 twin) from the float32
+    model, and two such forwards at most 2E from each other (a rounding
+    difference anywhere is amplified over the layers, so the kernels' own
+    error is not the scale: the bf16 model's is).  The zeroed logits and
+    ``control`` = (name, fn), a plain forward of another function, must
+    fail.  Then the median of FORWARD_RUNS warm runs.  Returns (record, the
+    float32 twin's params, launches)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.models.model import build_model
+    rec = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, tokens)
+    torch.cuda.synchronize()
+    rec["forward_first_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(launches, per_fwd, f"{model.cfg.name} forward {tuple(tokens.shape)}", tag)
+    check(bool(torch.isfinite(logits).all()), f"{model.cfg.name}: logits not finite")
+    params32 = pytree.tree_map(lambda t: t.float(), params)
+    model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    with plain_kernels():      # one logits tensor at a time beside these two
+        plain, _ = model.forward(params, tokens)
+        err = rms(torch, logits, plain)
+        agree = float((logits.argmax(-1) == plain.argmax(-1)).double().mean())
+        exact, _ = model32.forward(params32, tokens)
+        own, to_exact = rms(torch, plain, exact), rms(torch, logits, exact)
+        del exact, logits
+        name, fn = control
+        controls = {"zeroed logits": rms(torch, plain), name: rms(torch, fn(), plain)}
+        del plain
+    check(err <= 2 * own, f"{model.cfg.name}: logits rms err {err} vs the plain forward, "
+                          f"beyond 2 x the bf16 model's own {own}")
+    for key, val in controls.items():
+        check(val > 2 * own, f"{model.cfg.name}: control '{key}' ({val}) passed the "
+                             f"logits limit {2 * own}")
+    print(f"{tag} {model.cfg.name} forward {tuple(tokens.shape)} vs plain: logits rms err "
+          f"{err:.4e} (limit 2 x {own:.4e}, the plain bf16 forward vs the float32 model; "
+          f"the kernels' forward vs the float32 model {to_exact:.4e}); argmax agrees at "
+          f"{agree:.6f} of positions; controls fail at {controls}", flush=True)
+    runs = []
+    for _ in range(FORWARD_RUNS):
+        t0 = time.perf_counter()
+        model.forward(params, tokens)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    rec.update(forward_runs_s=runs, forward_s=statistics.median(runs),
+               forward_tok_per_s=tokens.numel() / statistics.median(runs),
+               logits_rms_err=err, logits_limit=2 * own, to_float32=to_exact,
+               argmax_agree=agree, controls=controls)
+    return rec, params32, launches
+
+
+def family_decode(torch, model32, params32, tokens, want_counts, what: str, tag: str):
+    """float32 ``decode_step`` teacher-forced over ``tokens`` against the
+    forward of the same model: the max abs error, and the launches of the
+    forward and the steps, exactly ``want_counts``.  Returns (max abs err,
+    the decoded logits, the forward's, launches)."""
+    zero_counts()
+    full, _ = model32.forward(params32, tokens)
+    cache = model32.init_cache(tokens.shape[0], tokens.shape[1], device="cuda")
+    steps = []
+    for i in range(tokens.shape[1]):
+        lg, cache = model32.decode_step(params32, cache, tokens[:, i:i + 1])
+        steps.append(lg[:, 0])
+    got = torch.stack(steps, dim=1)
+    launches = read_counts()
+    expect_counts(launches, want_counts, f"{what}: forward + {tokens.shape[1]} decode "
+                                         f"steps", tag)
+    err = float((got - full).abs().max())
+    print(f"{tag} {what}: decode vs teacher forcing over {tokens.shape[1]} tokens, max abs "
+          f"err {err:.3e} (limit {DECODE_TOL})", flush=True)
+    return err, got, full, launches
 
 
 def lm_kernels():
@@ -1771,7 +1899,6 @@ def lm_path(torch, gen):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import hybrid
-    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.model import build_model
     from repro_torch.obs import tracing
 
@@ -1793,89 +1920,28 @@ def lm_path(torch, gen):
         print(f"[7] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} Mamba-2 "
               f"layers, d_model {cfg.d_model}", flush=True)
 
-        # forward through the kernels
-        zero_counts()
-        t0 = time.perf_counter()
-        logits, _ = model.forward(params, tokens)
-        torch.cuda.synchronize()
-        wall["forward_first_s"] = time.perf_counter() - t0
-        launches["forward"] = read_counts()
-        expect_counts(launches["forward"], per_fwd, f"forward {tuple(tokens.shape)}")
-        check(bool(torch.isfinite(logits).all()), "forward logits not finite")
-        # the same forward with the plain versions.  Limit: a bf16 forward
-        # lies about E = rms(plain bf16 - float32 model) from the float32
-        # model, and two such forwards at most 2E from each other (a rounding
-        # difference anywhere is amplified over 54 layers, so the kernels'
-        # own error is not the scale: the bf16 model's is)
-        with plain_kernels():
-            plain, _ = model.forward(params, tokens)
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            model32 = build_model(cfg32)
-            params32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
-            exact, _ = model32.forward(params32, tokens)
-            saved = ssm_mod.ssd_scan
-            ssm_mod.ssd_scan = lambda *a, **kw: ssd_without_inter(*a, **kw)
-            try:
-                no_inter, _ = model.forward(params, tokens)
-            finally:
-                ssm_mod.ssd_scan = saved
-
-        def rms(t):
-            return float(t.double().pow(2).mean().sqrt())
-
-        err = rms(logits - plain)
-        own = rms(plain - exact)
-        limit = 2 * own
-        controls = {"zeroed logits": rms(plain), "no inter-chunk term": rms(no_inter - plain)}
-        agree = float((logits.argmax(-1) == plain.argmax(-1)).double().mean())
-        check(err <= limit, f"forward logits rms err {err} vs the plain forward, "
-                            f"beyond 2 x the bf16 model's own {own}")
-        for name, val in controls.items():
-            check(val > limit, f"control '{name}' ({val}) passed the logits limit")
-        print(f"[7] forward logits vs plain: rms err {err:.4e} (limit 2 x {own:.4e}, the "
-              f"plain bf16 forward vs the float32 model; the kernels' forward vs the "
-              f"float32 model {rms(logits - exact):.4e}; logits rms {rms(plain):.4e}); "
-              f"argmax agrees at {agree:.6f} of positions; controls {controls}",
-              flush=True)
-        del logits, plain, exact, no_inter
-        # the forward's time: median of warm runs (the first, above, is cold)
-        runs = []
-        for _ in range(FORWARD_RUNS):
-            t0 = time.perf_counter()
-            model.forward(params, tokens)
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-        wall["forward_runs_s"] = runs
-        wall["forward_s"] = statistics.median(runs)
-        wall["forward_tok_per_s"] = LM_BATCH * LM_SEQ / wall["forward_s"]
+        # forward through the kernels, against the plain versions, then timed
+        fwd, params32, launches["forward"] = family_forward(
+            torch, model, params, tokens, per_fwd, "[7]",
+            ("no inter-chunk term", lambda: without_inter_chunk(model, params, tokens)))
+        wall.update((key, fwd[key]) for key in ("forward_first_s", "forward_runs_s",
+                                                "forward_s", "forward_tok_per_s"))
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
 
         # float32 at the same widths: decode teacher-forced against forward
-        zero_counts()
-        short = tokens[:, :DECODE_SEQ]
-        full, _ = model32.forward(params32, short)
-        cache = model32.init_cache(LM_BATCH, DECODE_SEQ, device="cuda")
-        derr = 0.0
-        for i in range(DECODE_SEQ):
-            lg, cache = model32.decode_step(params32, cache, short[:, i:i + 1])
-            derr = max(derr, float((lg[:, 0] - full[:, i]).abs().max()))
-        launches["decode_f32"] = read_counts()
-        expect_counts(launches["decode_f32"],
-                      {"flash_attention": ATTN_PER_FORWARD * (1 + DECODE_SEQ),
-                       "ssd_chunk": SSD_PER_FORWARD, "ssd_chunk/mma": SSD_PER_FORWARD,
-                       "flash_attention/tile": ATTN_PER_FORWARD,     # float32
-                       "flash_attention/rows": ATTN_PER_FORWARD * DECODE_SEQ},
-                      f"float32 forward + {DECODE_SEQ} decode steps")
+        derr, _, _, launches["decode_f32"] = family_decode(
+            torch, model32, params32, tokens[:, :DECODE_SEQ],
+            {"flash_attention": ATTN_PER_FORWARD * (1 + DECODE_SEQ),
+             "ssd_chunk": SSD_PER_FORWARD, "ssd_chunk/mma": SSD_PER_FORWARD,
+             "flash_attention/tile": ATTN_PER_FORWARD,     # float32
+             "flash_attention/rows": ATTN_PER_FORWARD * DECODE_SEQ}, "float32", "[7]")
         check(derr < DECODE_TOL, f"decode vs teacher forcing: {derr}")
-        print(f"[7] float32 decode vs teacher forcing over {DECODE_SEQ} tokens: max "
-              f"abs err {derr:.3e} (limit {DECODE_TOL}; logits rms "
-              f"{rms(full):.3e})", flush=True)
-        del full, cache
 
         # serve.generate on the card, float32: every token the argmax of the
         # teacher-forced forward, except where that forward's top two logits
         # lie within 2 x DECODE_TOL (decode may then pick either)
         zero_counts()
-        prompt = short[:, :GEN32_PROMPT]
+        prompt = tokens[:, :GEN32_PROMPT]
         got, _ = serve.generate(model32, params32, prompt, GEN32_NEW)
         launches["generate_f32"] = read_counts()
         expect_counts(launches["generate_f32"],
@@ -1916,7 +1982,7 @@ def lm_path(torch, gen):
                                         f"+ {GEN_NEW}")
         fwd = teacher_forced(model, params, prompt, got)
         exact = teacher_forced(model32, params32, prompt, got)
-        tau = TOP_ERRS * rms(fwd - exact)
+        tau = TOP_ERRS * rms(torch, fwd, exact)
         below = exact.max(-1).values - exact.gather(-1, got[..., None])[..., 0]
         agree = float((got == fwd.argmax(-1)).double().mean())
         zeros = float((fwd.argmax(-1) == 0).double().mean())
@@ -4949,6 +5015,350 @@ def phase_train(torch, seed, smi):
     return train
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dense and SSM families at their published widths
+# ---------------------------------------------------------------------------
+
+GEMMA_ARCH, GEMMA_BATCH, GEMMA_SEQ = "gemma2-2b", 1, 8192   # the 4,096 window cuts
+MAMBA_ARCH, MAMBA_BATCH, MAMBA_SEQ = "mamba2-370m", 8, 2048
+GEMMA_ATTN, MAMBA_SSD = 26, 48        # kernel launches a forward: one a layer
+FAMILY_DECODE = 48                    # float32 decode steps, teacher-forced
+CHECK_WINDOW = 32                     # the check config: every local buffer wraps
+WINDOW_SAVING = 0.9                   # a windowed layer's attention below this x a global one
+FAMILY_SERVE = ["--batch", "4", "--prompt-len", "256", "--gen", "64"]
+
+
+def redraw_family_norms(params, gen, final_centre: float) -> None:
+    """In place, for the dense and SSM trees: the ``plus_one`` norms
+    (``ln*``) and ``conv_b`` around 0, the Mamba norms (``norm``,
+    ``gate_norm``) around 1, the final norm around ``final_centre`` and
+    ``dt_bias`` as Mamba-2 draws it (phase 7's ``redraw_norms``)."""
+    import math
+    import torch
+
+    def around(t, centre):
+        t.copy_(centre + 0.1 * torch.randn(t.shape, generator=gen, device=t.device))
+
+    def walk(node):
+        for key, t in node.items():
+            if isinstance(t, dict):
+                walk(t)
+            elif key.startswith("ln") or key == "conv_b":
+                around(t, 0.0)
+            elif key in ("norm", "gate_norm"):
+                around(t, 1.0)
+            elif key == "dt_bias":
+                lo, hi = math.log(1e-3), math.log(1e-1)
+                dt = torch.exp(lo + (hi - lo) * torch.rand(t.shape, generator=gen,
+                                                            device=t.device))
+                t.copy_(torch.log(torch.expm1(dt)))
+
+    for stack in params.get("groups", []) + [params.get("layers", {})]:
+        walk(stack)
+    around(params["final_norm"], final_centre)
+
+
+def family_profiles(torch, model, params, tokens, tag: str):
+    """Device time by kernel group (``device_profile``) of one forward at
+    ``tokens``' shape and of 2 decode steps of 4 sequences from position
+    256 (the server's decode phase: caches of 320 slots, about 260 in use;
+    the caches hold zeros, which costs the same).  Two steps: the
+    profiler's summary of a step's ~2,500 launches takes seconds."""
+    profiles = [device_profile(torch, lambda: model.forward(params, tokens),
+                               f"{model.cfg.name} forward {tuple(tokens.shape)}", tag)]
+    cache = model.init_cache(4, 320, device="cuda")
+    step = tokens[:1, :1].repeat(4, 1)
+
+    def decode_window():
+        cache["pos"] = 256
+        for _ in range(2):
+            model.decode_step(params, cache, step)
+
+    decode_window()   # warm
+    profiles.append(device_profile(torch, decode_window,
+                                   f"{model.cfg.name} 2 decode steps, batch 4, from "
+                                   f"position 256", tag))
+    return profiles
+
+
+def family_serve(torch, arch: str, per_token: dict, tag: str):
+    """``launch.serve.main`` as a user runs it (times: its own weights keep
+    the reference init's zero norms); its launches per token."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch] + FAMILY_SERVE
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        served, times = serve.main(argv)
+    launches = read_counts()
+    n_req, n_prompt, n_gen = (int(FAMILY_SERVE[i]) for i in (1, 3, 5))
+    expect_counts(launches, {k: v * (n_prompt + n_gen - 1) for k, v in per_token.items()},
+                  f"serve.main {' '.join(argv)}", tag)
+    check(tuple(served.shape) == (n_req, n_gen), f"served {tuple(served.shape)}")
+    rec = {"prefill_s": times["prefill_s"], "decode_s": times["decode_s"],
+           "decode_tok_per_s": n_req * (n_gen - 1) / times["decode_s"],
+           "log": log.getvalue().strip().splitlines()}
+    print(f"{tag} serve.main {' '.join(argv)}: {json.dumps(rec)}", flush=True)
+    return rec, launches
+
+
+def attention_pairs(t: int, window: int) -> int:
+    """Visible (query, key) pairs of causal attention over ``t`` tokens,
+    under a sliding ``window`` (0: none)."""
+    if window <= 0 or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def gemma_attention(torch, gen, cfg, ck):
+    """One gemma2 layer's attention at the forward's shape (B 1, Hq 8, Hkv
+    4, T 8192, D 256, bf16, causal, soft-cap 50): windowed (the local
+    layers) against its plain version, with the same attention without its
+    window as a control that must fail the limit; windowed and global
+    (the global layers) timed beside their bounds over the pairs each
+    sees, the plain version and SDPA (causal, no window, no soft-cap: not
+    the same function); the decode shape (4 sequences, one query against a
+    full 4,096-slot rolling cache) on the rows kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf16 = torch.bfloat16
+    b, hq, hkv, t, d = GEMMA_BATCH, cfg.n_heads, cfg.n_kv_heads, GEMMA_SEQ, cfg.hd
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    q, k, v = rnd(b, hq, t, d), rnd(b, hkv, t, d), rnd(b, hkv, t, d)
+    rows = []
+    for window in (cfg.attn_window, 0):
+        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
+                  sm_scale=d ** -0.5, q_offset=0, kv_len=t)
+        label = (f"gemma2 prefill B={b} Hq={hq} Hkv={hkv} T={t} D={d} bf16 causal "
+                 f"window={window} softcap={cfg.attn_softcap}, wgmma")
+        out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention,
+                     "wgmma", label)
+        ref = attention_ref(q, k, v, **kw)
+        limit = attn_limit(q, k, v, kw, ref)
+        bad = bad_count(out, ref, limit)
+        ck(bad == 0, f"{label}: {bad} elements beyond the attention limit")
+        err = float((out.double() - ref.double()).abs().max())
+        controls = {"zeroed output": bad_count(0 * ref, ref, limit)}
+        if window:
+            controls["no window"] = bad_count(attention_ref(q, k, v, **dict(kw, window=0)),
+                                              ref, limit)
+        for name, n in controls.items():
+            ck(n > 0, f"{label}: control '{name}' passed the attention limit")
+        del out, ref, limit
+        ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
+        pairs = attention_pairs(t, window)
+        flops = 4.0 * b * hq * pairs * d
+        nbytes = 2.0 * b * d * t * (2 * hq + 2 * hkv)     # q, o; k, v read once
+        b_ms, b_by = bound(flops, nbytes, "bf16")
+        row = {"name": "flash_attention.wgmma", "case": label, "ms": ms,
+               "plain_ms": timed(lambda: attention_ref(q, k, v, **kw), runs=3),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
+               "pairs": pairs, "tflops": flops / ms / 1e9, "max_abs_err": err,
+               "controls": controls}
+        rows.append(row)
+        print(f"[16] {label}: max abs err {err:.3e}; controls fail at {controls}; "
+              f"{ms:.3f} ms ({row['tflops']:.1f} TFLOP/s over {pairs} pairs), plain "
+              f"{row['plain_ms']:.3f}, bound {b_ms:.3f} by {b_by}", flush=True)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    sdpa = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True, scale=d ** -0.5))
+    del kr, vr
+    for row in rows:
+        row["library_ms"] = sdpa
+        row["library"] = "SDPA causal, no window, no soft-cap (not the same function)"
+    ck(rows[0]["ms"] < WINDOW_SAVING * rows[1]["ms"],
+       f"windowed attention {rows[0]['ms']:.3f} ms, not below {WINDOW_SAVING} x the "
+       f"global layer's {rows[1]['ms']:.3f}: the window's tile skip saves nothing")
+    print(f"[16] SDPA at gemma2's head shape (causal, no window, no soft-cap; K/V heads "
+          f"repeated before the call): {sdpa:.3f} ms", flush=True)
+    del q, k, v
+    # decode: 4 sequences, one query, a full rolling cache of 4,096 slots
+    nb, tc = int(FAMILY_SERVE[1]), cfg.attn_window
+    q, k, v = rnd(nb, hq, 1, d), rnd(nb, hkv, tc, d), rnd(nb, hkv, tc, d)
+    kw = dict(causal=False, window=0, softcap=cfg.attn_softcap, sm_scale=d ** -0.5,
+              q_offset=0, kv_len=tc)
+    label = (f"gemma2 decode B={nb} Hq={hq} Hkv={hkv} Tq=1 rolling cache {tc} of {tc} "
+             f"D={d} bf16 softcap={cfg.attn_softcap}, rows")
+    out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention, "rows",
+                 label)
+    ref = attention_ref(q, k, v, **kw)
+    bad = bad_count(out, ref, attn_limit(q, k, v, kw, ref))
+    ck(bad == 0, f"{label}: {bad} elements beyond the attention limit")
+    err = float((out.double() - ref.double()).abs().max())
+    ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
+    flops = 4.0 * nb * hq * tc * d
+    nbytes = 2.0 * nb * d * (2 * hq + 2 * hkv * tc)
+    b_ms, b_by = bound(flops, nbytes, "bf16")
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, scale=d ** -0.5))
+    row = {"name": "flash_attention.rows", "case": label, "ms": ms,
+           "plain_ms": timed(lambda: attention_ref(q, k, v, **kw)), "bound_ms": b_ms,
+           "bound_by": b_by, "flops": flops, "bytes": nbytes, "tflops": flops / ms / 1e9,
+           "max_abs_err": err, "library_ms": lib,
+           "library": "SDPA, no soft-cap (not the same function)"}
+    rows.append(row)
+    print(f"[16] {label}: max abs err {err:.3e}; {ms:.4f} ms, plain {row['plain_ms']:.4f}, "
+          f"SDPA {lib:.4f}, bound {b_ms:.4f} by {b_by}", flush=True)
+    return rows
+
+
+def mamba_chunk(torch, gen, cfg, ck):
+    """``ssd_chunk`` alone at mamba2's forward shape (B·H = 8·32 = 256 rows,
+    B and C per sequence (B·G = 8), T 2048, L 128, P 64, S 128, f32, the
+    slow decay of mamba2's dt) on the mma route against its plain version
+    (the TF32-rounded control must fail), timed beside its bound."""
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd.ref import ssd_chunk_ref
+    bh, bg = MAMBA_BATCH * cfg.ssm_heads, MAMBA_BATCH * cfg.ssm_ngroups
+    t, L, p, s = MAMBA_SEQ, cfg.ssm_chunk, cfg.ssm_headdim, cfg.ssm_state
+    args = ssd_inputs(torch, gen, bh, bg, t, p, s, slow=True)[:5]
+    label = (f"mamba2 ssd_chunk BH={bh} (B, C per {bh // bg} heads) T={t} L={L} P={p} "
+             f"S={s} f32, mma")
+    err = ssd_chunk_check(args, L, "mma", label, phase=16)
+    ms = timed(lambda: sk.ssd_chunk(*args, chunk=L))
+    nc = t // L
+    flops = bh * nc * (L * (L + 1) / 2 * (2.0 * s + 2.0 * p) + 2.0 * L * s * p)
+    nbytes = 4.0 * (bh * t * p + bh * t + bh + 2 * bg * t * s
+                    + bh * t * p + bh * nc * s * p + bh * t * s + bh * nc)
+    b_ms, b_by = bound(3 * flops, nbytes, "tf32")
+    row = {"name": "ssd_chunk.mma", "case": label, "ms": ms,
+           "plain_ms": timed(lambda: ssd_chunk_ref(*args, chunk=L), runs=3),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": nbytes, "tflops": flops / ms / 1e9, "max_abs_err": err}
+    print(f"[16] {label}: {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+          f"{row['plain_ms']:.3f}, bound {b_ms:.3f} by {b_by} (3xTF32)", flush=True)
+    return row
+
+
+def phase_families(torch, seed, smi):
+    """Phase 16: gemma2-2b and mamba2-370m at their published widths through
+    the normal entry points; returns the kernels' launches by route over
+    the phase's model runs and the rows of the new shapes."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    ck = Checks("[16]")
+    rec = {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    torch.cuda.reset_peak_memory_stats()
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    # gemma2-2b
+    cfg = get_config(GEMMA_ARCH)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        params = model.init(gen, "cuda")
+        redraw_family_norms(params, gen, 0.0)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (GEMMA_BATCH, GEMMA_SEQ),
+                               generator=gen, device="cuda")
+        print(f"[16] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} layers "
+              f"(local window {cfg.attn_window} / global), d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.hd} over {cfg.n_kv_heads} KV heads", flush=True)
+        per_fwd = {"flash_attention": GEMMA_ATTN, "flash_attention/wgmma": GEMMA_ATTN,
+                   "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+        unwindowed = build_model(dataclasses.replace(cfg, attn_window=0))
+        rec["gemma"], params32, got = family_forward(
+            torch, model, params, tokens, per_fwd, "[16]",
+            ("no window", lambda: unwindowed.forward(params, tokens)[0]))
+        add(got)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["gemma"]["profiles"] = family_profiles(torch, model, params, tokens, "[16]")
+        attn_rows = gemma_attention(torch, gen, cfg, ck)
+        # float32: decode teacher-forced; the check config's buffers wrap
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        short = tokens[:, :FAMILY_DECODE]
+        n_dec = FAMILY_DECODE * GEMMA_ATTN
+        per_decode = {"flash_attention": GEMMA_ATTN + n_dec, "flash_attention/rows": n_dec,
+                      "flash_attention/tile": GEMMA_ATTN, "flash_attention/wgmma": 0,
+                      "ssd_chunk": 0}
+        err, _, full, got = family_decode(torch, model32, params32, short, per_decode,
+                                          f"{cfg.name} float32", "[16]")
+        add(got)
+        ck(err < DECODE_TOL, f"{cfg.name} decode vs teacher forcing: {err}")
+        check_cfg = dataclasses.replace(cfg, dtype="float32", attn_window=CHECK_WINDOW)
+        err_w, got_w, full_w, got = family_decode(
+            torch, build_model(check_cfg), params32, short, per_decode,
+            f"check config (not a workload) {cfg.name} float32 attn_window="
+            f"{CHECK_WINDOW}, rolling buffers of {CHECK_WINDOW} slots wrap", "[16]")
+        add(got)
+        # the steps after the local buffers wrapped, on their own; control:
+        # the same steps against the forward without that window
+        wrapped = float((got_w - full_w)[:, CHECK_WINDOW:].abs().max())
+        ctrl = float((got_w - full)[:, CHECK_WINDOW:].abs().max())
+        ck(wrapped < DECODE_TOL, f"wrapped decode vs the windowed forward: {wrapped}")
+        ck(ctrl >= DECODE_TOL, f"control 'unwindowed forward' ({ctrl}) passed the wrapped "
+                               f"decode's limit")
+        rec["gemma"].update(decode_err=err, wrapped_decode_err=err_w,
+                            after_wrap_err=wrapped, wrapped_control=ctrl)
+        print(f"[16] wrapped decode, the {FAMILY_DECODE - CHECK_WINDOW} steps after the wrap: "
+              f"max abs err {wrapped:.3e} (limit {DECODE_TOL}); control 'the forward "
+              f"without the {CHECK_WINDOW}-token window' differs by {ctrl:.3e}", flush=True)
+        del params32, model32, full, full_w, got_w, params, tokens, short
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["gemma"]["serve"], got = family_serve(
+        torch, GEMMA_ARCH, {"flash_attention": GEMMA_ATTN, "flash_attention/rows": GEMMA_ATTN,
+                            "ssd_chunk": 0}, "[16]")
+    add(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-370m
+    cfg = get_config(MAMBA_ARCH)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        params = model.init(gen, "cuda")
+        redraw_family_norms(params, gen, 1.0)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (MAMBA_BATCH, MAMBA_SEQ),
+                               generator=gen, device="cuda")
+        print(f"[16] {cfg.name}: {n_params} parameters, bf16, {cfg.n_layers} Mamba-2 layers, "
+              f"d_model {cfg.d_model}, {cfg.ssm_heads} heads of {cfg.ssm_headdim}, state "
+              f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}", flush=True)
+        per_fwd = {"ssd_chunk": MAMBA_SSD, "ssd_chunk/mma": MAMBA_SSD, "ssd_chunk/simt": 0,
+                   "flash_attention": 0}
+
+        rec["mamba"], params32, got = family_forward(
+            torch, model, params, tokens, per_fwd, "[16]",
+            ("no inter-chunk term", lambda: without_inter_chunk(model, params, tokens)))
+        add(got)
+        rec["mamba"]["profiles"] = family_profiles(torch, model, params, tokens, "[16]")
+        ssd_row = mamba_chunk(torch, gen, cfg, ck)
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        err, _, _, got = family_decode(
+            torch, model32, params32, tokens[:2, :FAMILY_DECODE],
+            {"ssd_chunk": MAMBA_SSD, "ssd_chunk/mma": MAMBA_SSD, "flash_attention": 0},
+            f"{cfg.name} float32", "[16]")
+        add(got)
+        ck(err < DECODE_TOL, f"{cfg.name} decode vs teacher forcing: {err}")
+        rec["mamba"]["decode_err"] = err
+        del params32, model32, params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["mamba"]["serve"], got = family_serve(
+        torch, MAMBA_ARCH, {"flash_attention": 0, "ssd_chunk": 0}, "[16]")
+    add(got)
+
+    rec["launches"] = {k: v for k, v in total.items() if v}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[16] card: {smi}; families phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return total, attn_rows, ssd_row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5040,14 +5450,21 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = phase_train(torch, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families, attn_rows, ssd_row = phase_families(torch, args.seed, smi)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
-            line["launches_by_path"]["train"] = trained[f"{kind}/{route}"]
-            line["launches"] += trained[f"{kind}/{route}"]
-            if "launches_by_route" in line:
-                for r in line["launches_by_route"]:
-                    line["launches_by_route"][r] += trained[f"{kind}/{r}"]
+            for path, counts in (("train", trained), ("families", families)):
+                line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
+                line["launches"] += counts.get(f"{kind}/{route}", 0)
+                if "launches_by_route" in line:
+                    for r in line["launches_by_route"]:
+                        line["launches_by_route"][r] += counts.get(f"{kind}/{r}", 0)
+            line["cases"] = [{"shape": row["case"], **{key: row[key] for key in keys}}
+                             for row in attn_rows + [ssd_row] if row["name"] == line["name"]]
     kernels[1]["cases"].append(served_gemm)
     for gemm, route in zip(kernels[:2], ("wgmma", "simt")):
         for path, counts in (("sparse", sparse_launches), ("estimators", est_launches),

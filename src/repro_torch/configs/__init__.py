@@ -2,13 +2,22 @@
 
 The same ids and aliases as ``repro.configs``.  One module per ported
 architecture, each exporting FULL (the published config) and SMOKE (same
-family, tiny dims, CPU-runnable); only zamba2-2.7b is ported so far, the
-others raise ``KeyError`` until their families are (ROADMAP.md).
+family, tiny dims, CPU-runnable): the dense, VLM, SSM and hybrid families.
+The MoE (mixtral, grok) and enc-dec (seamless) architectures raise
+``KeyError`` until their families are ported (ROADMAP.md).
 """
 
 import importlib
 
-PORTED = ("zamba2_2p7b",)
+PORTED = (
+    "llava_next_mistral_7b",
+    "zamba2_2p7b",
+    "gemma2_2b",
+    "qwen1p5_0p5b",
+    "nemotron_4_15b",
+    "yi_9b",
+    "mamba2_370m",
+)
 
 # dashes/dots in CLI ids map to underscores in module names
 _ALIASES = {

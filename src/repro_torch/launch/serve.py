@@ -2,11 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --batch 4 --prompt-len 256 --gen 64            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The port of ``repro.launch.serve`` for the ported families (zamba2: Mamba-2
-constant-size states and the shared attention block's KV caches).  Weights
-are random, drawn from ``--seed``.
+The port of ``repro.launch.serve`` for every ported architecture: the dense
+and VLM transformers (KV caches, rolling buffers on windowed layers; the
+VLM serves text), mamba2 (constant-size conv and SSD states) and zamba2
+(both).  Weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations

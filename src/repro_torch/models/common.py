@@ -1,5 +1,5 @@
 """Shared model building blocks, the parts of ``repro.models.common`` that the
-hybrid uses: norms, RoPE, attention through the fused kernel, MLPs, the
+ported families use: norms, RoPE, attention through the fused kernel, MLPs, the
 losses and init helpers.
 
 Everything is functional over parameter trees of plain dicts.  Products take
@@ -87,14 +87,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(params: Params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     if mlp_type in ("swiglu", "geglu"):
-        act = F.silu if mlp_type == "swiglu" else F.gelu
+        act = F.silu if mlp_type == "swiglu" else gelu
         h = act((x @ params["w_gate"]).float()) * (x @ params["w_up"]).float()
     elif mlp_type == "relu2":  # nemotron squared-ReLU
         h = torch.relu((x @ params["w_up"]).float()) ** 2
     elif mlp_type == "gelu":
-        h = F.gelu((x @ params["w_up"]).float())
+        h = gelu((x @ params["w_up"]).float())
     else:
         raise ValueError(mlp_type)
     return h.to(x.dtype) @ params["w_down"]

@@ -79,8 +79,10 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["lm_head"].float()
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            patches=None):
     """tokens (B, T) -> (logits (B, T, V) f32, aux 0.0)."""
+    del patches
     x, aux = forward_hidden(params, cfg, tokens)
     return _logits(params, x), aux
 

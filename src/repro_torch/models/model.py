@@ -3,12 +3,14 @@ interface per architecture family.
 
     model = build_model(cfg)
     params = model.init(generator, device="cuda")
-    logits, aux = model.forward(params, tokens)
-    loss = model.loss(params, tokens, labels)
+    logits, aux = model.forward(params, tokens, patches)
+    loss = model.loss(params, tokens, labels, patches)
     cache = model.init_cache(batch, max_len, device="cuda")
     logits, cache = model.decode_step(params, cache, tokens)
 
-Only the ``hybrid`` family (zamba2) is ported; the others raise ``KeyError``.
+The ``dense`` and ``vlm`` families (``transformer``), ``ssm`` and
+``hybrid`` are ported; ``moe`` and ``encdec`` raise ``KeyError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,10 +21,15 @@ from typing import Any
 import torch
 
 from repro_torch.core.dsarray import resolve_device
-from repro_torch.models import hybrid
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
-_FAMILY_MODULES = {"hybrid": hybrid}
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "vlm": transformer,
+    "ssm": ssm,
+    "hybrid": hybrid,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +40,8 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda"):
         return self.module.init_params(generator, self.cfg, resolve_device(device))
 
-    def forward(self, params, tokens):
-        return self.module.forward(params, self.cfg, tokens)
+    def forward(self, params, tokens, patches=None):
+        return self.module.forward(params, self.cfg, tokens, patches)
 
     def loss(self, params, tokens, labels, patches=None):
         return self.module.loss_fn(params, self.cfg, tokens, labels, patches)
@@ -45,6 +52,10 @@ class Model:
 
     def decode_step(self, params, cache, tokens):
         return self.module.decode_step(params, self.cfg, cache, tokens)
+
+    @property
+    def needs_patches(self) -> bool:
+        return self.cfg.frontend != "none"
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,8 +1,12 @@
-"""Mamba-2 block, the parts of ``repro.models.ssm`` that the hybrid uses.
+"""Mamba-2 (SSD), the port of ``repro.models.ssm``: the block the hybrid
+uses and the attention-free language model (mamba2-370m).
 
 The full-sequence branch runs the SSD through ``kernels.ssd.ops.ssd_scan``
 (the CUDA chunk kernel on the card) in fp32, as the reference's
 ``ssd_chunked`` casts to fp32; the one-token decode branch is torch ops.
+The reference's ``lax.scan`` over the stacked layers is a Python loop;
+with ``cfg.remat`` under grad mode each layer is checkpointed, as its
+``jax.checkpoint`` of the scan body.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.models import common as cm
@@ -99,3 +104,90 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     new_state = ({"conv": new_conv, "h": h_fin}
                  if state is not None or single_step else None)
     return res + y @ p["out_proj"], new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 LM
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's tree, shapes, scales and distributions, drawn from
+    ``gen`` on ``device``: norms start at zero, as in the reference; the
+    logits come from the tied embedding."""
+    dtype = cfg.activation_dtype
+    return {
+        "embed": cm.normal(gen, (cfg.vocab_size, cfg.d_model), dtype, device, 0.02),
+        "layers": cm.stack_layer_params(
+            cfg.n_layers, lambda i: mamba_init(gen, cfg, dtype, device)),
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+    }
+
+
+def _layer(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return mamba_apply(lp, x, cfg)[0]
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   patches=None):
+    """tokens (B, T) -> (final hidden states (B, T, D), aux 0.0).  The final
+    norm has no ``plus_one``.  The stacked leaves are unbound once (see
+    ``hybrid.forward_hidden``)."""
+    del patches
+    x = params["embed"][tokens]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in cm.unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_layer, lp, cfg, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(lp, cfg, x)
+    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+
+def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x.float() @ params["embed"].float().T
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            patches=None):
+    """tokens (B, T) -> (logits (B, T, V) f32, aux 0.0)."""
+    x, aux = forward_hidden(params, cfg, tokens, patches)
+    return _logits(params, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, patches=None) -> torch.Tensor:
+    """Next-token cross-entropy (+ z-loss), token mean, fp32 scalar."""
+    hidden, _ = forward_hidden(params, cfg, tokens)
+    return cm.chunked_lm_loss(hidden, params["embed"].T, labels)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+    """Per layer the conv window (B, K-1, C) and the SSD state (B, H, S, P)
+    f32: O(1) in the sequence length, so ``max_len`` is unused."""
+    del max_len
+    dinner, s, g = cfg.ssm_dinner, cfg.ssm_state, cfg.ssm_ngroups
+    L = cfg.n_layers
+    return {
+        "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, dinner + 2 * g * s),
+                            dtype=cfg.activation_dtype, device=device),
+        "h": torch.zeros((L, batch, cfg.ssm_heads, s, cfg.ssm_headdim),
+                         dtype=torch.float32, device=device),
+        "pos": 0,
+    }
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor):
+    """tokens (B, 1) -> (logits (B, 1, V) f32, cache).  Updates ``cache`` in
+    place (the reference returns a new one) and returns it."""
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        x, st = mamba_apply(cm.layer(params["layers"], i), x, cfg,
+                            state={"conv": cache["conv"][i], "h": cache["h"][i]},
+                            single_step=True)
+        cache["conv"][i] = st["conv"]
+        cache["h"][i] = st["h"]
+    cache["pos"] += 1
+    return _logits(params, cm.rms_norm(x, params["final_norm"], cfg.norm_eps)), cache

@@ -1,19 +1,63 @@
-"""Transformer blocks, the parts of ``repro.models.transformer`` that the
-hybrid's shared block uses: init, the full-sequence block and the one-token
-decode block, with GQA, RoPE, sliding windows, soft-caps, QKV bias and the
-gemma2 sandwich norms.  MoE layers are not ported yet (ROADMAP.md).
+"""Unified decoder-only transformer, the port of
+``repro.models.transformer`` for the dense and VLM families (gemma2, qwen,
+nemotron, yi, llava) and the hybrid's shared block.
+
+Features selected per ``ModelConfig``: GQA, RoPE, sliding windows, the
+gemma2 local/global alternation with sandwich norms and logit soft-caps,
+QKV bias (qwen), squared-ReLU (nemotron), the vision-patch prefix (llava).
+MoE layers (``n_experts > 0``) are not ported yet (ROADMAP.md).
+
+The layers are stacked per group sub-layer, as the reference's scan over
+layer groups keeps them (gemma2's group is [local, global]; every other
+arch has a single-layer group); the scan is a Python loop here.  With
+``cfg.remat`` under grad mode each group is checkpointed, as the reference's
+``jax.checkpoint`` of its group body.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
 
 Params = cm.Params
+
+
+# ---------------------------------------------------------------------------
+# Layer groups: the repeating unit of the reference's scan
+# ---------------------------------------------------------------------------
+
+
+def group_size(cfg: ModelConfig) -> int:
+    return cfg.local_global_period if cfg.local_global_period > 0 else 1
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    g = group_size(cfg)
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into "
+                         f"groups of {g}")
+    return cfg.n_layers // g
+
+
+def sublayer_window(cfg: ModelConfig, sub_idx: int) -> int:
+    """Sliding window for sub-layer ``sub_idx`` of a group (0 = full
+    attention): under a local/global alternation the last sub-layer of each
+    group is global."""
+    if cfg.local_global_period > 0:
+        is_global = sub_idx == cfg.local_global_period - 1
+        return 0 if is_global else cfg.attn_window
+    return cfg.attn_window
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
 
 
 def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
@@ -32,8 +76,9 @@ def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
     if cfg.n_experts > 0:
-        raise KeyError("MoE layers are not ported to repro_torch yet "
-                       "(see ROADMAP.md)")
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not ported "
+            f"to repro_torch yet (see ROADMAP.md)")
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype, device=device)  # noqa: E731
     p: Params = {"ln1": zeros(), "attn": _attn_init(gen, cfg, dtype, device),
                  "ln2": zeros(),
@@ -43,6 +88,30 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params
         p["ln1_post"] = zeros()
         p["ln2_post"] = zeros()
     return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """The reference's tree, shapes, scales and distributions, drawn from
+    ``gen`` on ``device``: ``groups`` is a list of ``group_size`` stacks,
+    each over ``n_groups`` layers; ``lm_head`` only when the embeddings are
+    untied; ``mm_proj`` for the vision frontend.  Norms start at zero."""
+    dtype = cfg.activation_dtype
+    ng = n_groups(cfg)
+    params: Params = {
+        "embed": cm.normal(gen, (cfg.vocab_size, cfg.d_model), dtype, device, 0.02),
+        "groups": [cm.stack_layer_params(ng, lambda i: _layer_init(gen, cfg, dtype, device))
+                   for _ in range(group_size(cfg))],
+        "final_norm": torch.zeros(cfg.d_model, dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = cm.dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                          device)
+    if cfg.frontend == "vision":
+        params["mm_proj"] = {
+            "w1": cm.dense_init(gen, (cfg.frontend_dim, cfg.d_model), dtype, device),
+            "w2": cm.dense_init(gen, (cfg.d_model, cfg.d_model), dtype, device),
+        }
+    return params
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -83,6 +152,107 @@ def _block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return x + h, 0.0
 
 
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (gemma's scaled by √d_model in fp32, then rounded),
+    with the VLM patch prefix projected (GELU between the two products, on
+    the fp32 product as the reference applies it) and prepended."""
+    x = params["embed"][tokens]
+    if cfg.local_global_period > 0:  # gemma-style embedding scaling
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    if patches is not None:
+        mm = params["mm_proj"]
+        pe = cm.gelu(patches.to(x.dtype).float() @ mm["w1"].float())
+        x = torch.cat([pe.to(x.dtype) @ mm["w2"], x], dim=1)
+    return x
+
+
+def _group(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """One group: its sub-layers (per-layer trees) in order."""
+    for s, lp in enumerate(layers):
+        x, _ = _block_apply(lp, x, positions, cfg, sublayer_window(cfg, s))
+    return x
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   patches: Optional[torch.Tensor] = None):
+    """tokens (B, S) [+ patches (B, P, F)] -> (final hidden (B, T, D), aux
+    0.0; aux is the MoE load-balancing loss, which no ported family has).
+    Each group sub-layer's stacked leaves are unbound once (see
+    ``hybrid.forward_hidden``)."""
+    x = embed_inputs(params, cfg, tokens, patches)
+    positions = torch.arange(x.shape[1], device=x.device)
+    ng = n_groups(cfg)
+    stacks = [cm.unstack(stack, ng) for stack in params["groups"]]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(ng):
+        layers = [stack[i] for stack in stacks]
+        if remat:
+            x = checkpoint(_group, layers, cfg, x, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _group(layers, cfg, x, positions)
+    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True), 0.0
+
+
+def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final hidden states, soft-capped where the config
+    says (in place when no gradient flows: gemma2's are 8.4 GB at 8192
+    tokens)."""
+    logits = x.float() @ lm_head(params, cfg).float()
+    cap = cfg.final_softcap
+    if cap <= 0.0:
+        return logits
+    if logits.requires_grad:
+        return cap * torch.tanh(logits / cap)
+    return logits.div_(cap).tanh_().mul_(cap)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None):
+    """tokens (B, S) [+ patches (B, P, F)] -> (logits (B, T, V) f32, aux)."""
+    x, aux = forward_hidden(params, cfg, tokens, patches)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, patches: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Next-token cross-entropy (+ z-loss) over the text (the suffix after
+    the patch prefix), soft-capped logits, + 0.01·aux."""
+    hidden, aux = forward_hidden(params, cfg, tokens, patches)
+    if patches is not None:
+        hidden = hidden[:, patches.shape[1]:]
+    loss = cm.chunked_lm_loss(hidden, lm_head(params, cfg), labels,
+                              softcap=cfg.final_softcap)
+    return loss + 0.01 * aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serving): KV caches with rolling buffers for windowed layers
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+    """Per group sub-layer stacked (n_groups, B, Hkv, Tc, hd) K and V caches;
+    a windowed sub-layer's is a rolling buffer of min(window, max_len)
+    slots."""
+    dtype = cfg.activation_dtype
+    layers = []
+    for s in range(group_size(cfg)):
+        win = sublayer_window(cfg, s)
+        tc = min(win, max_len) if win > 0 else max_len
+        shape = (n_groups(cfg), batch, cfg.n_kv_heads, tc, cfg.hd)
+        layers.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return {"layers": layers, "pos": 0}
+
+
 def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
                  vc: torch.Tensor, pos: int, cfg: ModelConfig, win: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -115,3 +285,21 @@ def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
         mlp_out = cm.rms_norm(mlp_out, p["ln2_post"], cfg.norm_eps,
                               plus_one=True)
     return x + mlp_out, kc, vc
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor):
+    """One token for every sequence: tokens (B, 1) -> (logits (B, 1, V) f32,
+    cache).  Updates ``cache`` in place (the reference returns a new one)
+    and returns it."""
+    pos = cache["pos"]
+    x = params["embed"][tokens]
+    if cfg.local_global_period > 0:
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    for i in range(n_groups(cfg)):
+        for s, (stack, kv) in enumerate(zip(params["groups"], cache["layers"])):
+            x, _, _ = decode_block(cm.layer(stack, i), x, kv["k"][i], kv["v"][i], pos,
+                                   cfg, sublayer_window(cfg, s))
+    cache["pos"] = pos + 1
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
+    return _logits(params, cfg, x), cache

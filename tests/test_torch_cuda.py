@@ -285,6 +285,8 @@ FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff
     (256, 512, 2, 2, 128, True, 128, 50.0, 0),
     (300, 300, 4, 4, 80, True, 0, 0.0, 0),     # zamba2's head dim
     (70, 90, 2, 2, 256, False, 0, 0.0, 0),     # gemma2's head dim
+    (256, 384, 8, 4, 256, True, 128, 50.0, 128),   # gemma2: window, soft-cap, GQA 8:4
+    (1, 300, 8, 4, 256, False, 0, 50.0, 0),    # gemma2 decode: D = 256 on the rows kernel
     (200, 260, 4, 2, 80, True, 0, 0.0, 60),    # D = 80 with q_offset
     (150, 150, 2, 1, 112, True, 48, 0.0, 0),   # D = 112: a zeroed padding chunk
 ]
@@ -370,6 +372,7 @@ def _ssd_inputs(card, bh, bg, t, p, s, slow, seed):
 @pytest.mark.parametrize("bh,bg,t,p,s,chunk", [
     (4, 4, 256, 64, 32, 64), (3, 3, 64, 16, 8, 32), (1, 1, 32, 128, 128, 16),
     (8, 1, 512, 64, 64, 128),      # zamba2: one group of B, C for all heads
+    (8, 2, 256, 64, 128, 128),     # mamba2: S = 128 at P = 64, chunk 128
     (2, 2, 96, 16, 12, 24),        # S = 12, chunk 24: the simt route by the rule
 ])
 @pytest.mark.parametrize("slow", [True, False])

@@ -88,7 +88,7 @@ def test_configs_match_reference():
     assert cfg.param_count() == jax_get_config(ARCH).param_count()
     assert cfg.activation_dtype == torch.bfloat16
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen1.5-0.5b")
+        get_config("mixtral-8x7b")
 
 
 def test_norms_are_redrawn(models):
