@@ -35,8 +35,10 @@ raises and the script exits non-zero):
    narrow rows, whose labels must equal the whole-row layout's bit for
    bit, and the mma route's streamed form, whose labels and counts must
    equal its resident form's;
-   ``flash_attention`` on the cases of ``tests/test_kernels.py`` and D of
-   80, 112 and 256 in f32 (SIMT tile), bf16 and f16 (wgmma), at the LM
+   ``flash_attention`` on the cases of ``tests/test_kernels.py``, D of
+   80, 112 and 256 and the encoder-decoder's non-causal forms at D = 64
+   (16 heads, Tq < Tk, Tq > Tk, one query over every slot) in f32 (SIMT
+   tile), bf16 and f16 (wgmma), at the LM
    path's prefill shape (B = 2, H = 32, T = 4096, D = 80, causal, bf16),
    D = 80 with q_offset and kv_len, and the decode shape (Tq = 1,
    kv_len < Tk, the rows kernel); ``ssd_chunk`` alone at the LM path's
@@ -47,8 +49,8 @@ raises and the script exits non-zero):
    ``ssd_scan`` at that shape with fast and slow decay and ``h0`` and at
    two small shapes, all on the mma route; each against a limit from its
    output's precision and reduction depth that a zeroed output, attention
-   without its causal mask and an SSD without its inter-chunk term must
-   fail;
+   without its causal mask (non-causal attention: made causal) and an SSD
+   without its inter-chunk term must fail;
 4. the ds-array main path at a size K-means users run: 8,000,000 x 100 fp32
    samples in 64 Gaussian blobs, blocks (262,144 x 100): ``from_array`` ->
    ``mean(axis=0)`` -> ``matmul_ta(x, x)``; 8192² ``A @ B`` and
@@ -318,6 +320,28 @@ raises and the script exits non-zero):
     decode teacher-forced; ``launch.serve --arch mamba2-370m`` as above.
     The kernels line adds the phase's launches (``families``) and the new
     shapes as ``cases``.
+17. the encoder-decoder family: seamless-m4t-medium at its published width
+    (12 encoder + 12 decoder layers, d_model 1,024, 16 heads of 64, d_ff
+    4,096, vocab 256,206), bf16 weights from ``--seed`` with every norm
+    redrawn around 1, each step's launch counts zeroed before and read
+    after.  First ``AttentionFunction``'s gradients at the family's forms
+    (non-causal, Tq != Tk, D 64) on ``wgmma`` and ``tile`` against plain
+    autograd.  ``forward`` on B 8 x 1,536 frames (~30 s of speech) x 256
+    tokens, exactly 36 ``flash_attention`` launches (12 encoder, 12
+    decoder, 12 cross), all ``wgmma``, its logits within 2·E of the plain
+    forward (the forward with a causal encoder must fail), timed and
+    profiled with 2 decode steps; the encoder's self-attention and the
+    cross-attention at those shapes and decode cross-attention (4 x 1
+    query over 256 encoder slots, ``rows``) against their plain versions
+    (made causal must fail), timed beside their bounds, the plain version
+    and SDPA (``is_causal=False``: the same function); float32
+    ``decode_step`` with ``enc_out`` in the cache, teacher-forced over 48
+    tokens; one loss-and-gradients call against the plain one (loss within
+    2·E, cosine at least 0.99) and 3 ``make_train_step`` steps at B 4 x
+    T_dec 256 over 1,536 frames (losses finite, every leaf moved, s/step,
+    peak); ``launch.serve --arch seamless-m4t-medium`` with 4 requests of
+    256 frames and prompt tokens + 64 new tokens.  The kernels line adds
+    the phase's launches (``encdec``) and the new shapes as ``cases``.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -550,10 +574,12 @@ def attn_limit(q, k, v, kw, ref):
             + torch.finfo(q.dtype).eps * ref.double().abs())
 
 
-def attn_check(out, q, k, v, kw, what: str, causal_control: bool = False):
+def attn_check(out, q, k, v, kw, what: str, causal_control: bool = False,
+               causal_added: bool = False):
     """``out`` against the plain attention within ``attn_limit``; a zeroed
     output (and, for causal attention, the same attention without its
-    causal mask) must fail that limit.  Returns the max abs error."""
+    causal mask; for non-causal attention, the same attention made causal)
+    must fail that limit.  Returns the max abs error."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     ref = attention_ref(q, k, v, **kw)
     limit = attn_limit(q, k, v, kw, ref)
@@ -565,6 +591,9 @@ def attn_check(out, q, k, v, kw, what: str, causal_control: bool = False):
         open_kw = dict(kw, causal=False)
         controls["no causal mask"] = bad_count(attention_ref(q, k, v, **open_kw),
                                                ref, limit)
+    if causal_added:
+        controls["made causal"] = bad_count(
+            attention_ref(q, k, v, **dict(kw, causal=True)), ref, limit)
     for name, n in controls.items():
         check(n > 0, f"{what}: control '{name}' passed the attention limit")
     print(f"[3] {what}: max abs err {err:.3e}; controls fail at "
@@ -810,9 +839,11 @@ def without_inter_chunk(model, params, tokens):
         return model.forward(params, tokens)[0]
 
 
-def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
-    """``forward`` through the kernels (its launches exactly ``per_fwd``)
-    against the same forward with the plain versions.  Limit: a bf16
+def family_forward(torch, model, params, tokens, per_fwd, tag: str, control,
+                   patches=None):
+    """``forward`` (over ``patches`` too: an encoder-decoder's frames)
+    through the kernels (its launches exactly ``per_fwd``) against the same
+    forward with the plain versions.  Limit: a bf16
     forward lies about E = rms(plain bf16 - float32 twin) from the float32
     model, and two such forwards at most 2E from each other (a rounding
     difference anywhere is amplified over the layers, so the kernels' own
@@ -826,7 +857,7 @@ def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
     rec = {}
     zero_counts()
     t0 = time.perf_counter()
-    logits, _ = model.forward(params, tokens)
+    logits, _ = model.forward(params, tokens, patches)
     torch.cuda.synchronize()
     rec["forward_first_s"] = time.perf_counter() - t0
     launches = read_counts()
@@ -835,10 +866,10 @@ def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
     params32 = pytree.tree_map(lambda t: t.float(), params)
     model32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
     with plain_kernels():      # one logits tensor at a time beside these two
-        plain, _ = model.forward(params, tokens)
+        plain, _ = model.forward(params, tokens, patches)
         err = rms(torch, logits, plain)
         agree = float((logits.argmax(-1) == plain.argmax(-1)).double().mean())
-        exact, _ = model32.forward(params32, tokens)
+        exact, _ = model32.forward(params32, tokens, patches)
         own, to_exact = rms(torch, plain, exact), rms(torch, logits, exact)
         del exact, logits
         name, fn = control
@@ -856,7 +887,7 @@ def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
     runs = []
     for _ in range(FORWARD_RUNS):
         t0 = time.perf_counter()
-        model.forward(params, tokens)
+        model.forward(params, tokens, patches)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
     rec.update(forward_runs_s=runs, forward_s=statistics.median(runs),
@@ -866,14 +897,20 @@ def family_forward(torch, model, params, tokens, per_fwd, tag: str, control):
     return rec, params32, launches
 
 
-def family_decode(torch, model32, params32, tokens, want_counts, what: str, tag: str):
+def family_decode(torch, model32, params32, tokens, want_counts, what: str, tag: str,
+                  frames=None):
     """float32 ``decode_step`` teacher-forced over ``tokens`` against the
     forward of the same model: the max abs error, and the launches of the
-    forward and the steps, exactly ``want_counts``.  Returns (max abs err,
-    the decoded logits, the forward's, launches)."""
+    forward and the steps, exactly ``want_counts``.  An encoder-decoder's
+    ``frames`` go through the forward, and are encoded once into the
+    cache's ``enc_out``.  Returns (max abs err, the decoded logits, the
+    forward's, launches)."""
     zero_counts()
-    full, _ = model32.forward(params32, tokens)
-    cache = model32.init_cache(tokens.shape[0], tokens.shape[1], device="cuda")
+    full, _ = model32.forward(params32, tokens, frames)
+    kw = {} if frames is None else {"enc_len": frames.shape[1]}
+    cache = model32.init_cache(tokens.shape[0], tokens.shape[1], device="cuda", **kw)
+    if frames is not None:
+        cache["enc_out"] = model32.module.encode(params32, model32.cfg, frames)
     steps = []
     for i in range(tokens.shape[1]):
         lg, cache = model32.decode_step(params32, cache, tokens[:, i:i + 1])
@@ -1188,6 +1225,11 @@ FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff (tests/test_ker
     (300, 300, 4, 4, 80, True, 0, 0.0, 0),     # zamba2's head dim
     (150, 150, 2, 1, 112, True, 48, 0.0, 0),   # D = 112: a zeroed padding chunk
     (70, 90, 2, 2, 256, False, 0, 0.0, 0),     # D = 256
+    # the encoder-decoder (seamless-m4t-medium: 16 heads of 64)
+    (200, 200, 16, 16, 64, False, 0, 0.0, 0),  # bidirectional encoder
+    (96, 600, 16, 16, 64, False, 0, 0.0, 0),   # cross-attention, Tq < Tk
+    (500, 70, 4, 4, 64, False, 0, 0.0, 0),     # Tq > Tk, a ragged last key tile
+    (1, 256, 16, 16, 64, False, 0, 0.0, 0),    # decode cross-attention: rows, every slot
 ]
 
 
@@ -1213,7 +1255,10 @@ def phase_lm_kernels(torch, gen):
                      route, what)
         # the causal mask hides a key from the first query (at q_offset)
         hides = kw["causal"] and kw["q_offset"] < k.shape[2] - 1
-        return attn_check(out, q, k, v, kw, what, causal_control=hides)
+        added = (not kw["causal"] and q.shape[2] > 1 and kw.get("kv_len") is None
+                 and kw["window"] == 0)
+        return attn_check(out, q, k, v, kw, what, causal_control=hides,
+                          causal_added=added)
 
     for tq, tk, hq, hkv, d, causal, window, cap, qoff in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -2594,7 +2639,7 @@ def phase_sparse(torch, gen, smi):
     del dist64, dist32, pdist64, pdist32, means, pred
 
     # 5. one assignment's added memory, and 6. times beside the bound and cuSPARSE
-    row_valid = km._row_valid(R)
+    row_valid = kmod._Rows(R).valid
     with never_densified():
         _, assign_added = added_peak(
             torch, lambda: kmod._sparse_center_stats(R, row_valid, cpad, x_sq))
@@ -4754,14 +4799,29 @@ def grad_agreement(torch, got, want):
     return dot / (ng * nw) ** 0.5, (ng / nw) ** 0.5
 
 
+def attention_grad_err(torch, q, k, v, do, kw, route: str, ck, what: str) -> float:
+    """``AttentionFunction`` under autograd on the card: its forward one
+    launch by ``route``, its backward none, its gradients against autograd
+    of the plain version on the same inputs; returns the max error over
+    dq, dk, dv, each relative to max(1, its largest magnitude)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
+    out = routed(lambda: flash_attention(q, k, v, **kw), fk.flash_attention, route, what)
+    before = dict(fk.flash_attention.route_launches)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ck(fk.flash_attention.route_launches == before, "the attention backward launched a kernel")
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, **kw), plain, do)
+    return max(float((g.float() - w.float()).abs().max())
+               / max(1.0, float(w.float().abs().max())) for g, w in zip(got, want))
+
+
 def train_grad_cases(torch, gen, ck):
     """The autograd Functions' gradients on the card against autograd of the
     plain versions, at small shapes on each route the training path takes
     (attention ``wgmma`` in bf16 and ``tile`` in f32 on the model's
     (B, T, H, D) views; the SSD chunk's ``mma`` under ``ssd_scan``); the
     backward launches no kernel.  Returns the max relative error."""
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ops import attention_ref, flash_attention
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd.ops import ssd_scan
     errs = {}
@@ -4771,17 +4831,8 @@ def train_grad_cases(torch, gen, ck):
         k, v = (x[:, :, i:i + 2].transpose(1, 2).detach().requires_grad_()
                 for i in (4, 8))
         do = torch.randn((2, 4, 300, 80), generator=gen, device="cuda").to(dtype)
-        out = routed(lambda: flash_attention(q, k, v, window=100),
-                     fk.flash_attention, route, f"attention grads, {route}")
-        before = dict(fk.flash_attention.route_launches)
-        got = torch.autograd.grad(out, (q, k, v), do)
-        ck(fk.flash_attention.route_launches == before,
-           "the attention backward launched a kernel")
-        plain = [t.detach().requires_grad_() for t in (q, k, v)]
-        want = torch.autograd.grad(attention_ref(*plain, window=100), plain, do)
-        errs[route] = max(float((g.float() - w.float()).abs().max())
-                          / max(1.0, float(w.float().abs().max()))
-                          for g, w in zip(got, want))
+        errs[route] = attention_grad_err(torch, q, k, v, do, dict(window=100), route, ck,
+                                         f"attention grads, {route}")
         ck(errs[route] <= tol, f"attention grads ({route}): rel err {errs[route]} > {tol}")
     args = [t.requires_grad_() for t in ssd_inputs(torch, gen, 8, 2, 300, 64, 64, slow=True)]
     y, h = routed(lambda: ssd_scan(*args, chunk=128), sk.ssd_chunk, "mma", "ssd grads")
@@ -5058,15 +5109,18 @@ def redraw_family_norms(params, gen, final_centre: float) -> None:
     around(params["final_norm"], final_centre)
 
 
-def family_profiles(torch, model, params, tokens, tag: str):
+def family_profiles(torch, model, params, tokens, tag: str, patches=None):
     """Device time by kernel group (``device_profile``) of one forward at
-    ``tokens``' shape and of 2 decode steps of 4 sequences from position
-    256 (the server's decode phase: caches of 320 slots, about 260 in use;
-    the caches hold zeros, which costs the same).  Two steps: the
-    profiler's summary of a step's ~2,500 launches takes seconds."""
-    profiles = [device_profile(torch, lambda: model.forward(params, tokens),
+    ``tokens``' shape (over ``patches``, an encoder-decoder's frames) and of
+    2 decode steps of 4 sequences from position 256 (the server's decode
+    phase: caches of 320 slots, about 260 in use, and an encoder-decoder's
+    256 encoder slots; the caches hold zeros, which costs the same).  Two
+    steps: the profiler's summary of a step's ~2,500 launches takes
+    seconds."""
+    profiles = [device_profile(torch, lambda: model.forward(params, tokens, patches),
                                f"{model.cfg.name} forward {tuple(tokens.shape)}", tag)]
-    cache = model.init_cache(4, 320, device="cuda")
+    kw = {} if patches is None else {"enc_len": 256}
+    cache = model.init_cache(4, 320, device="cuda", **kw)
     step = tokens[:1, :1].repeat(4, 1)
 
     def decode_window():
@@ -5081,9 +5135,10 @@ def family_profiles(torch, model, params, tokens, tag: str):
     return profiles
 
 
-def family_serve(torch, arch: str, per_token: dict, tag: str):
+def family_serve(torch, arch: str, per_token: dict, tag: str, once=None):
     """``launch.serve.main`` as a user runs it (times: its own weights keep
-    the reference init's zero norms); its launches per token."""
+    the reference init's zero norms); its launches per token, and ``once``
+    a request batch (an encoder-decoder's encoder)."""
     from repro_torch.launch import serve
     argv = ["--arch", arch] + FAMILY_SERVE
     zero_counts()
@@ -5091,7 +5146,9 @@ def family_serve(torch, arch: str, per_token: dict, tag: str):
         served, times = serve.main(argv)
     launches = read_counts()
     n_req, n_prompt, n_gen = (int(FAMILY_SERVE[i]) for i in (1, 3, 5))
-    expect_counts(launches, {k: v * (n_prompt + n_gen - 1) for k, v in per_token.items()},
+    once = once or {}
+    expect_counts(launches, {k: v * (n_prompt + n_gen - 1) + once.get(k, 0)
+                             for k, v in per_token.items()},
                   f"serve.main {' '.join(argv)}", tag)
     check(tuple(served.shape) == (n_req, n_gen), f"served {tuple(served.shape)}")
     rec = {"prefill_s": times["prefill_s"], "decode_s": times["decode_s"],
@@ -5359,6 +5416,308 @@ def phase_families(torch, seed, smi):
     return total, attn_rows, ssd_row
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the encoder-decoder family at its published width
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+# 1,536 frames: ~30 s of speech at the 50 frames a second of the w2v-BERT
+# output the frontend stub stands for
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_TOKENS = 8, 1536, 256
+ENCDEC_ATTN = 36                      # a forward: 12 encoder, 12 decoder self, 12 cross
+ENCDEC_LAYERS = 12                    # per side
+ENCDEC_TRAIN = (4, 256, 1536)         # the training step's B, T_dec, T_enc
+ENCDEC_TRAIN_STEPS = 3
+ENCDEC_DECODE = (2, 48)               # float32 decode: sequences, steps
+
+
+def redraw_encdec_norms(params, gen) -> None:
+    """In place: every norm scale of the encoder-decoder around 1 (its
+    ``rms_norm`` multiplies by the scale itself; the init's zeros make every
+    layer add nothing and the logits exactly 0)."""
+    import torch
+
+    def around(t):
+        t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=gen, device=t.device))
+
+    for side in ("enc_layers", "dec_layers"):
+        for key, t in params[side].items():
+            if key.startswith("ln"):
+                around(t)
+    around(params["enc_norm"])
+    around(params["dec_norm"])
+
+
+def causal_encoder(model, params, tokens, frames):
+    """The logits of ``model``'s forward with the encoder's self-attention
+    made causal (a control); the decoder's attention is unchanged."""
+    from repro_torch.models import encdec
+    real = encdec._mha
+
+    def mha(p, xq, xkv, cfg, causal, rope):
+        return real(p, xq, xkv, cfg, causal=causal or xq is xkv, rope=rope)
+
+    with patched(encdec, "_mha", mha):
+        return model.forward(params, tokens, frames)[0]
+
+
+def encdec_grad_cases(torch, gen, ck):
+    """``AttentionFunction`` at the encoder-decoder's forms under autograd:
+    non-causal cross-attention with Tq != Tk at D = 64, on ``wgmma`` (bf16)
+    and ``tile`` (f32): one forward launch by its route, none in the
+    backward, the gradients autograd's of the plain version.  Returns the
+    max relative error by route."""
+    errs = {}
+    for dtype, route, tol in ((torch.bfloat16, "wgmma", 2e-2), (torch.float32, "tile", 1e-4)):
+        q = torch.randn((2, 4, 96, 64), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((2, 4, 300, 64), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        do = torch.randn((2, 4, 96, 64), generator=gen, device="cuda").to(dtype)
+        errs[route] = attention_grad_err(torch, q, k, v, do, dict(causal=False), route, ck,
+                                         f"cross-attention grads, {route}")
+        ck(errs[route] <= tol, f"cross-attention grads ({route}): rel err "
+                               f"{errs[route]} > {tol}")
+    print(f"[17] non-causal Tq != Tk attention gradients vs plain autograd (D 64), max "
+          f"rel err by route: {errs}", flush=True)
+    return errs
+
+
+def encdec_attention(torch, gen, cfg, ck):
+    """The encoder-decoder's three attention forms at the phase's shapes,
+    each against its plain version (a zeroed output and the same attention
+    made causal must fail), timed beside its bound, the plain version and
+    SDPA (``is_causal=False``: the same function): the encoder's
+    bidirectional self-attention (B 8, H 16, T 1,536, D 64) and the
+    cross-attention (Tq 256 against Tk 1,536) on ``wgmma``; decode
+    cross-attention (4 sequences, one query against 256 encoder slots) on
+    ``rows``."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf16 = torch.bfloat16
+    h, d = cfg.n_heads, cfg.hd
+    nb = int(FAMILY_SERVE[1])
+    shapes = (("encoder self-attention", ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_FRAMES, "wgmma"),
+              ("cross-attention", ENCDEC_BATCH, ENCDEC_TOKENS, ENCDEC_FRAMES, "wgmma"),
+              ("decode cross-attention", nb, 1, int(FAMILY_SERVE[3]), "rows"))
+    rows = []
+    for what, b, tq, tk, route in shapes:
+        q = torch.randn((b, h, tq, d), generator=gen, device="cuda").to(bf16)
+        k, v = (torch.randn((b, h, tk, d), generator=gen, device="cuda").to(bf16)
+                for _ in range(2))
+        kw = dict(causal=False, window=0, softcap=0.0, sm_scale=d ** -0.5, q_offset=0,
+                  kv_len=tk)
+        label = f"seamless {what} B={b} H={h} Tq={tq} Tk={tk} D={d} bf16 non-causal, {route}"
+        out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention, route,
+                     label)
+        ref = attention_ref(q, k, v, **kw)
+        limit = attn_limit(q, k, v, kw, ref)
+        bad = bad_count(out, ref, limit)
+        ck(bad == 0, f"{label}: {bad} elements beyond the attention limit")
+        err = float((out.double() - ref.double()).abs().max())
+        controls = {"zeroed output": bad_count(0 * ref, ref, limit)}
+        if tq > 1:
+            controls["made causal"] = bad_count(
+                attention_ref(q, k, v, **dict(kw, causal=True)), ref, limit)
+        for name, n in controls.items():
+            ck(n > 0, f"{label}: control '{name}' passed the attention limit")
+        del out, ref, limit
+        ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
+        flops = 4.0 * b * h * tq * tk * d
+        nbytes = 2.0 * b * h * d * (2 * tq + 2 * tk)       # q, o; k, v read once
+        b_ms, b_by = bound(flops, nbytes, "bf16")
+        lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5))
+        row = {"name": f"flash_attention.{route}", "case": label, "ms": ms,
+               "plain_ms": timed(lambda: attention_ref(q, k, v, **kw), runs=3),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
+               "tflops": flops / ms / 1e9, "max_abs_err": err, "controls": controls,
+               "library_ms": lib, "library": "SDPA, is_causal=False (the same function)"}
+        rows.append(row)
+        print(f"[17] {label}: max abs err {err:.3e}; controls fail at {controls}; "
+              f"{ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain {row['plain_ms']:.4f}, "
+              f"SDPA {lib:.4f}, bound {b_ms:.4f} by {b_by}", flush=True)
+        del q, k, v
+    return rows
+
+
+def encdec_train(torch, gen, model, params, ck, rec):
+    """Phase 17's training: one loss-and-gradients call through the kernels
+    against the same call with the plain versions (the loss within 2·E of
+    it, E the plain bf16 loss against the float32 twin's; the gradients'
+    cosine at least GRAD_COS), then ENCDEC_TRAIN_STEPS ``make_train_step``
+    steps (AdamW, fp32 moments) on B x T_dec tokens over T_enc frames from
+    the synthetic pipeline: losses finite, every leaf moved, s/step and the
+    peak memory.  Consumes ``params``; returns the launches."""
+    import dataclasses
+    import math
+    from torch.utils import _pytree as pytree
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState, loss_and_grads, make_train_step
+    cfg = model.cfg
+    b, t_dec, t_enc = ENCDEC_TRAIN
+    pipe = SyntheticPipeline(PipelineConfig(
+        seed=0, global_batch=b, seq_len=t_dec, vocab_size=cfg.vocab_size,
+        frontend=cfg.frontend, frontend_dim=cfg.frontend_dim, frontend_tokens=t_enc),
+        device="cuda")
+    batch = pipe.batch_at(0)
+    per_step = {"flash_attention": 2 * ENCDEC_ATTN, "flash_attention/wgmma": 2 * ENCDEC_ATTN,
+                "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+    with torch.no_grad(), plain_kernels():
+        params32 = pytree.tree_map(lambda t: t.float(), params)
+        twin = float(build_model(dataclasses.replace(cfg, dtype="float32")).loss(
+            params32, batch.tokens, batch.labels, batch.patches))
+        del params32
+    zero_counts()
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    expect_counts(read_counts(), per_step, "loss and gradients, kernels", "[17]")
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads(model, params, batch)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    e = abs(loss_p - twin)
+    cos, ratio = grad_agreement(torch, grads_k, grads_p)
+    del grads_k, grads_p
+    rec.update(train_loss_kernels=loss_k, train_loss_plain=loss_p, train_loss_twin=twin,
+               train_loss_limit=2 * e, grad_cos=cos, grad_norm_ratio=ratio)
+    ck(abs(loss_k - loss_p) <= 2 * e, f"loss {loss_k} (kernels) vs {loss_p} (plain): "
+       f"gap beyond 2 x E = 2 x {e} (bf16 plain vs the float32 twin {twin})")
+    ck(cos >= GRAD_COS, f"gradients' cosine {cos} < {GRAD_COS}")
+    ck(abs(ratio - 1) <= GRAD_NORM_RATIO, f"gradient norm ratio {ratio}")
+    print(f"[17] loss kernels {loss_k:.6f}, plain {loss_p:.6f} (gap "
+          f"{abs(loss_k - loss_p):.3e}, limit 2 x E = {2 * e:.3e}, float32 twin "
+          f"{twin:.6f}); gradients: cosine {cos:.6f}, norm ratio {ratio:.6f}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = make_optimizer("adamw", peak_lr=TRAIN_LR, warmup=1, total=ENCDEC_TRAIN_STEPS)
+    state = TrainState(params=params, opt_state=opt.init(params))
+    step_fn = make_train_step(model, opt)
+    leaves = pytree.tree_leaves(state.params)
+    samples = [t.reshape(-1)[::max(1, t.numel() // 65536)].clone() for t in leaves]
+    train = dict.fromkeys(per_step, 0)
+    losses, norms, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ENCDEC_TRAIN_STEPS):
+        zero_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = read_counts()
+        expect_counts(got, per_step, f"train step {i}", "[17]")
+        for key in train:
+            train[key] += got[key]
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    leaves = pytree.tree_leaves(state.params)
+    moved = [not torch.equal(t.reshape(-1)[::max(1, t.numel() // 65536)], s0)
+             for t, s0 in zip(leaves, samples)]
+    ck(all(map(math.isfinite, losses + norms)), f"losses {losses}, grad norms {norms}")
+    ck(all(bool(torch.isfinite(t).all()) for t in leaves),
+       "a parameter is not finite after training")
+    ck(all(moved), f"{moved.count(False)} of {len(moved)} parameter leaves did not move")
+    s_step = statistics.median(times[1:])
+    rec.update(train_losses=losses, train_grad_norms=norms, train_step_s=times,
+               train_s_per_step=s_step, train_tokens_per_s=b * t_dec / s_step,
+               train_frames_per_s=b * t_enc / s_step, train_peak_gb=peak)
+    print(f"[17] {ENCDEC_TRAIN_STEPS} train steps at B {b} x T_dec {t_dec} over T_enc "
+          f"{t_enc} frames: losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; {s_step:.4f} s/step (median of steps 2-"
+          f"{ENCDEC_TRAIN_STEPS}; step 1 {times[0]:.3f} s), peak {peak:.2f} GB", flush=True)
+    return train
+
+
+def phase_encdec(torch, seed, smi):
+    """Phase 17: seamless-m4t-medium at its published width through the
+    normal entry points; returns the kernels' launches by route over the
+    phase's model runs and the rows of the new attention shapes."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    ck = Checks("[17]")
+    rec = {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    torch.cuda.reset_peak_memory_stats()
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    rec["grad_cases"] = encdec_grad_cases(torch, gen, ck)
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    with torch.inference_mode():
+        params = model.init(gen, "cuda")
+        redraw_encdec_norms(params, gen)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_TOKENS),
+                               generator=gen, device="cuda")
+        frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.frontend_dim),
+                             generator=gen, device="cuda")
+        print(f"[17] {cfg.name}: {n_params} parameters (param_count {cfg.param_count()}), "
+              f"bf16, {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}; {ENCDEC_BATCH} x {ENCDEC_FRAMES} frames, "
+              f"{ENCDEC_BATCH} x {ENCDEC_TOKENS} tokens", flush=True)
+        per_fwd = {"flash_attention": ENCDEC_ATTN, "flash_attention/wgmma": ENCDEC_ATTN,
+                   "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+        rec["forward"], params32, got = family_forward(
+            torch, model, params, tokens, per_fwd, "[17]",
+            ("causal encoder", lambda: causal_encoder(model, params, tokens, frames)),
+            patches=frames)
+        add(got)
+        fwd = rec["forward"]
+        fwd["frames_per_s"] = ENCDEC_BATCH * ENCDEC_FRAMES / fwd["forward_s"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["profiles"] = family_profiles(torch, model, params, tokens, "[17]",
+                                          patches=frames)
+        attn_rows = encdec_attention(torch, gen, cfg, ck)
+        # float32: decode teacher-forced with enc_out in the cache
+        nseq, nstep = ENCDEC_DECODE
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        n_dec = nstep * 2 * ENCDEC_LAYERS
+        per_decode = {"flash_attention": ENCDEC_ATTN + ENCDEC_LAYERS + n_dec,
+                      "flash_attention/tile": ENCDEC_ATTN + ENCDEC_LAYERS,
+                      "flash_attention/rows": n_dec, "flash_attention/wgmma": 0,
+                      "ssd_chunk": 0}
+        err, _, _, got = family_decode(torch, model32, params32, tokens[:nseq, :nstep],
+                                       per_decode, f"{cfg.name} float32", "[17]",
+                                       frames=frames[:nseq])
+        add(got)
+        ck(err < DECODE_TOL, f"{cfg.name} decode vs teacher forcing: {err}")
+        rec["decode_err"] = err
+        del params32, model32, tokens, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():           # the training state enters autograd
+        params = pytree.tree_map(lambda t: t.clone(), params)
+    add(encdec_train(torch, gen, model, params, ck, rec))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_token = {"flash_attention": 2 * ENCDEC_LAYERS,
+                 "flash_attention/rows": 2 * ENCDEC_LAYERS, "flash_attention/wgmma": 0,
+                 "ssd_chunk": 0}
+    once = {"flash_attention": ENCDEC_LAYERS, "flash_attention/wgmma": ENCDEC_LAYERS}
+    rec["serve"], got = family_serve(torch, ENCDEC_ARCH, per_token, "[17]", once=once)
+    add(got)
+    rec["launches"] = {k: v for k, v in total.items() if v}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[17] card: {smi}; encoder-decoder phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return total, attn_rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5453,11 +5812,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     families, attn_rows, ssd_row = phase_families(torch, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec, encdec_rows = phase_encdec(torch, args.seed, smi)
+    attn_rows += encdec_rows
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
-            for path, counts in (("train", trained), ("families", families)):
+            for path, counts in (("train", trained), ("families", families),
+                                 ("encdec", encdec)):
                 line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
                 line["launches"] += counts.get(f"{kind}/{route}", 0)
                 if "launches_by_route" in line:

@@ -32,14 +32,19 @@ def frobenius(a: DsArray) -> float:
     return float(torch.sqrt((a * a).sum()))
 
 
-def _broadcast_rows(row: DsArray, n: int, bn: Optional[int] = None) -> DsArray:
+def _broadcast_rows(row: DsArray, n: int, bn: Optional[int] = None,
+                    like: Optional[DsArray] = None) -> DsArray:
     """(1, m) -> (n, m) ds-array with the row repeated, block-natively: the
     (1, bm) row tile is broadcast straight into the stacked layout, and only
     the pad rows of the last block row are masked (never a ``collect`` and
-    re-block)."""
+    re-block).  With a distributed ``like`` (the array it is combined with)
+    the result is placed as ``like`` is and each rank broadcasts into its
+    own shard only."""
     from repro_torch.core.structural import _mask_axes
     if row.shape[0] != 1:
         raise ValueError(f"_broadcast_rows wants a (1, m) row, got {row.shape}")
+    if like is not None and like.is_distributed:
+        return _broadcast_rows_placed(row, n, like)
     row = row.ensure_zero_pad()
     m = row.shape[1]
     bm = row.block_shape[1]
@@ -50,6 +55,27 @@ def _broadcast_rows(row: DsArray, n: int, bn: Optional[int] = None) -> DsArray:
     if gn * bn > n:                                # zero the broadcast pad rows
         blocks = _mask_axes(blocks, n=n)
     return DsArray(blocks, BlockGrid((n, m), (bn, bm)), PAD_ZERO)
+
+
+def _broadcast_rows_placed(row: DsArray, n: int, like: DsArray) -> DsArray:
+    """:func:`_broadcast_rows` placed as the distributed ``like`` (whose
+    block rows it takes): this rank's shard of the broadcast, its rows past
+    ``n`` zero."""
+    from repro_torch.core import placement as pl
+    row = row._gathered().ensure_zero_pad()
+    loc = pl.local(like.blocks)
+    gnl, gml, bn, bm = loc.shape
+    r0, c0 = pl.offsets(like.blocks)
+    tile = row.blocks[:1, c0:c0 + gml]                  # (1, <= gml, 1, bm)
+    if tile.shape[1] < gml:                             # like's grid is padded
+        tile = torch.nn.functional.pad(tile, (0, 0, 0, 0, 0, gml - tile.shape[1]))
+    blocks = tile.expand(gnl, gml, bn, bm)
+    if (r0 + gnl) * bn > n:                             # zero the pad rows
+        rows = (r0 * bn + torch.arange(gnl * bn, device=loc.device)).reshape(gnl, 1, bn, 1)
+        blocks = torch.where(rows < n, blocks, torch.zeros((), dtype=blocks.dtype,
+                                                           device=loc.device))
+    return DsArray(pl.rewrap(blocks, like.blocks),
+                   BlockGrid((n, row.shape[1]), (bn, bm)), PAD_ZERO)
 
 
 def _initial_q(m: int, k: int, seed: int, device) -> torch.Tensor:
@@ -87,7 +113,7 @@ class PCA(BaseEstimator):
                 mean_row = x.mean(axis=0)
                 self.mean_ = mean_row.collect().to(torch.float32)
                 x = x - _broadcast_rows(mean_row, x.shape[0],
-                                        x.block_shape[0])
+                                        x.block_shape[0], like=x)
             else:
                 self.mean_ = None
             self.components_, self.explained_variance_ = pca(
@@ -105,7 +131,8 @@ class PCA(BaseEstimator):
             if self.center:
                 mean = from_array(self.mean_.reshape(1, -1),
                                   (1, x.block_shape[1]), device=x.device)
-                x = x - _broadcast_rows(mean, x.shape[0], x.block_shape[0])
+                x = x - _broadcast_rows(mean, x.shape[0], x.block_shape[0],
+                                        like=x)
             w = from_array(comp.T, (x.block_shape[1], comp.shape[0]),
                            device=x.device)
             return x @ w
@@ -138,7 +165,7 @@ def pca(x: DsArray, n_components: int, n_iter: int = 30, seed: int = 0,
     n, m = x.shape
     if center:
         mean = x.mean(axis=0)                     # (1, m) ds-array
-        xc = x - _broadcast_rows(mean, n, x.block_shape[0])
+        xc = x - _broadcast_rows(mean, n, x.block_shape[0], like=x)
     else:
         xc = x
     bq = (x.block_shape[1], n_components)

@@ -18,7 +18,9 @@ the reference is 32-bit, a 64-bit one is narrowed first (float64 ->
 float32, int64 -> int32); a bfloat16 tensor is written as the reference
 writes one (raw 2-byte records, ``<V2`` in the file, ``bfloat16`` in the
 manifest), so its own ``restore`` refuses it as the reference's does.
-NumPy arrays and Python scalars are written as they are.  ``restore``
+NumPy arrays and Python scalars are written as they are.  A DTensor leaf
+(placed on a mesh) is gathered and written whole, by rank 0, as the
+reference writes a sharded leaf; ``restore`` gives a plain tensor.  ``restore``
 places every leaf on ``device`` (default ``"cuda"``) as a tensor, 64-bit
 values narrowed as the reference's ``jnp.asarray`` narrows them.
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch._faults import fire as _fire
+from repro_torch.core import placement as _pl
 
 Params = Any
 
@@ -113,11 +116,12 @@ def _flatten_with_paths(tree) -> Tuple[List[str], List[Any], Callable]:
 
 
 def _host_leaf(leaf):
-    """A leaf as the host value ``save`` writes (see the module docstring)."""
+    """A leaf as the host value ``save`` writes (see the module docstring);
+    a DTensor leaf whole, gathered on every rank (a collective call)."""
     if isinstance(leaf, _BF16Leaf):
         return leaf
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach()
+        t = _pl.gather(leaf.detach())
         if t.dtype == torch.bfloat16:
             return _BF16Leaf(t.to("cpu", copy=True).view(torch.int16)
                              .numpy().view(np.uint16))
@@ -143,24 +147,40 @@ def _write_leaf(path: str, arr) -> Tuple[List[int], str]:
 
 def save(root: str, step: int, tree: Params,
          extra: Optional[Dict[str, Any]] = None) -> str:
-    """Synchronous checkpoint write with atomic commit."""
+    """Synchronous checkpoint write with atomic commit.  With DTensor
+    leaves (a tree placed on a mesh) every rank calls it: each leaf is
+    gathered whole on every rank, rank 0 writes and commits, and all ranks
+    meet at a barrier before returning."""
     paths, leaves, _ = _flatten_with_paths(tree)
+    placed = any(_pl.is_dtensor(leaf) for leaf in leaves)
+    if placed:
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+    else:
+        writer = True
     final = os.path.join(root, f"step_{step:08d}")
     tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
         fname = f"leaf_{i:05d}.npy"
-        shape, dtype = _write_leaf(os.path.join(tmp, fname), _host_leaf(leaf))
+        host = _host_leaf(leaf)
+        if not writer:
+            continue
+        shape, dtype = _write_leaf(os.path.join(tmp, fname), host)
         manifest["leaves"].append({
             "path": p, "file": fname, "shape": shape, "dtype": dtype,
             "shards": 1,
         })
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)          # commit
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # commit
+    if placed:
+        dist.barrier()
     return final
 
 

@@ -2,9 +2,9 @@
 
 The same ids and aliases as ``repro.configs``.  One module per ported
 architecture, each exporting FULL (the published config) and SMOKE (same
-family, tiny dims, CPU-runnable): the dense, VLM, SSM and hybrid families.
-The MoE (mixtral, grok) and enc-dec (seamless) architectures raise
-``KeyError`` until their families are ported (ROADMAP.md).
+family, tiny dims, CPU-runnable): the dense, VLM, SSM, hybrid and
+encoder-decoder families.  The MoE architectures (mixtral, grok) raise
+``KeyError`` until their family is ported (ROADMAP.md).
 """
 
 import importlib
@@ -17,6 +17,7 @@ PORTED = (
     "nemotron_4_15b",
     "yi_9b",
     "mamba2_370m",
+    "seamless_m4t_medium",
 )
 
 # dashes/dots in CLI ids map to underscores in module names

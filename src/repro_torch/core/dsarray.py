@@ -36,8 +36,9 @@ the reductions work on each rank's shard (a reduction all-reduces its
 partials; ``sum(axis=0)`` comes back replicated on the mesh axis of grid
 dim 0, as ``core.shmap_ops.colsum_psum``'s); ``transpose`` permutes each
 shard, and its result has the mirrored placement (the mesh axis of grid
-dim 0 then shards grid dim 1).  ``@`` runs ``shmap_ops.summa_matmul``.
-The structural ops, ``matmul_ta``, ``apply_along_axis`` and every op on
+dim 0 then shards grid dim 1).  ``@`` runs ``shmap_ops.summa_matmul``
+and ``matmul_ta`` ``shmap_ops.matmul_ta_psum``.  The structural ops,
+``apply_along_axis`` and every op on
 sparse blocks but ``todense``/``collect`` run on the gathered blocks and
 place the result on the operand's mesh and axes (``core.shmap_ops`` lists
 them).  No DTensor reaches a kernel.
@@ -937,15 +938,23 @@ def matmul_ta(a: DsArray, b: DsArray) -> DsArray:
     """``Aᵀ @ B`` with the transpose folded into the GEMM: ``a`` stays in its
     untransposed stacked layout and ``local_matmul`` reads it transposed
     (a sparse ``a`` is contracted by its stored entries; a sparse ``b``
-    densifies).  With an operand on a mesh it multiplies the gathered
-    operands and places the product as that operand is."""
+    densifies).  With an operand on a mesh, two dense operands run
+    ``shmap_ops.matmul_ta_psum`` on that operand's mesh and axes (each
+    rank's block rows in one ``stacked_matmul`` launch, the partials
+    all-reduced); a sparse one multiplies the gathered operands and places
+    the product as the distributed operand is."""
     from repro_torch.core import structural
     from repro_torch.kernels.matmul.ops import local_matmul
     if not isinstance(b, DsArray):
         raise TypeError("matmul_ta wants DsArray operands")
     if a.is_distributed or b.is_distributed:
-        return _replace(matmul_ta(a._gathered(), b._gathered()),
-                        a if a.is_distributed else b)
+        ref = a if a.is_distributed else b
+        if a.is_sparse or b.is_sparse:
+            return _replace(matmul_ta(a._gathered(), b._gathered()), ref)
+        from repro_torch.core import shmap_ops
+        if a.block_shape[0] != b.block_shape[0]:
+            b = b.rechunk((a.block_shape[0], b.block_shape[1]))
+        return shmap_ops.matmul_ta_psum(a, b, *ref.mesh_axes)
     if b.is_sparse:
         b = b.todense()
     if a.shape[0] != b.shape[0]:

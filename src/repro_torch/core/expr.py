@@ -26,6 +26,15 @@ dtypes without data, so recording reads no data, launches no kernel and
 moves no launch counter, and the eager layer's pad-state propagation
 carries over to whole plans.  Inference is memoised by structure.
 
+A leaf may be a distributed ds-array (``DsArray.distribute``).  Its meta
+is a DTensor of the same mesh, placements and shape over a ``meta`` shard
+(``core.placement.abstract``), on which the collectives move nothing, so a
+node's recorded grid, pad state and placement are those of its eager op on
+the mesh.  The plan then runs every node as its eager op runs there:
+``MatMul`` through ``summa_matmul`` or ``matmul_ta_psum``, ``Reduce``
+with its all-reduce, ``Blockwise`` on each rank's shard, the structural
+nodes on the gathered blocks (``core.shmap_ops``).
+
 ==============  ==========================================================
 node            records
 ==============  ==========================================================
@@ -65,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel
+from repro_torch.core import placement as _pl
 from repro_torch.core import sparse as sparse_mod
 from repro_torch.core.blocking import BlockGrid
 from repro_torch.core.dsarray import (PAD_DIRTY, PAD_ZERO, DsArray, PadState,
@@ -123,13 +133,22 @@ def _is_sparse(meta) -> bool:
 
 
 def _abstract(t):
-    """A ``meta`` twin of a tensor or stacked COO: shapes, dtypes and
-    flags, no data."""
+    """A ``meta`` twin of a tensor or stacked COO: shapes, dtypes, flags
+    and placement, no data."""
     if isinstance(t, sparse_mod.StackedCOO):
         return sparse_mod.StackedCOO(_abstract(t.data), _abstract(t.indices),
                                      t.shape, t.indices_sorted,
                                      t.unique_indices)
+    if _pl.is_dtensor(t):
+        return _pl.abstract(t)
     return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+
+
+def _placement(meta) -> tuple:
+    """The placement signature of a ds-shaped meta (``()`` when it is not
+    distributed)."""
+    b = meta.blocks
+    return _pl.signature(b.data if isinstance(b, sparse_mod.StackedCOO) else b)
 
 
 def _meta_sig(meta) -> tuple:
@@ -142,7 +161,7 @@ def _meta_sig(meta) -> tuple:
             b = meta.blocks
             fmt = ("bcoo", b.nse, b.indices_sorted, b.unique_indices)
         return ("ds", tuple(meta.blocks.shape), str(meta.blocks.dtype),
-                meta.grid, meta.pad_state) + fmt
+                meta.grid, meta.pad_state, _placement(meta)) + fmt
     return ("arr", tuple(meta.shape), str(meta.dtype))
 
 
@@ -219,15 +238,12 @@ class Expr:
 class Leaf(Expr):
     """A concrete DsArray: a plan input, keyed by its signature and never by
     its data, so plans over other arrays of the same signature share one
-    cached run."""
+    cached run.  A distributed array's signature holds its mesh and
+    placements."""
 
     __slots__ = ("value",)
 
     def __init__(self, value: DsArray):
-        if value.is_distributed:
-            raise NotImplementedError(
-                "lazy plans over a distributed ds-array are not supported: "
-                "run its eager ops, or record on collect()ed data")
         self.value = value
         self.children = ()
         self.meta = DsArray(_abstract(value.blocks), value.grid,
@@ -238,7 +254,8 @@ class Leaf(Expr):
         fmt = ("bcoo", self.value.blocks.nse) if self.value.is_sparse \
             else ("dense",)
         return ("leaf", g.shape, g.block_shape, self.value.stacked_grid,
-                str(self.value.dtype), self.value.pad_state) + fmt
+                str(self.value.dtype), self.value.pad_state,
+                _placement(self.value)) + fmt
 
     def local_key(self):
         return self.signature()
@@ -322,6 +339,10 @@ class Blockwise(Expr):
         return pad_state_of(out)
 
     def lower(self, *vals):
+        placed = next((v for v in vals
+                       if isinstance(v, DsArray) and v.is_distributed), None)
+        if placed is not None:
+            return self._lower_placed(placed, vals)
         out = self.fn(*[v.blocks if isinstance(v, DsArray) else v
                         for v in vals])
         ref = next((v for v in vals if isinstance(v, DsArray)), None)
@@ -331,6 +352,28 @@ class Blockwise(Expr):
         # resolved claim (made for the dense fns) says
         pad = PAD_ZERO if isinstance(out, sparse_mod.StackedCOO) else self.pad
         return DsArray(out, ref.grid, pad)
+
+    def _lower_placed(self, placed: DsArray, vals):
+        """``fn`` over operands of which ``placed`` (the first) is on a
+        mesh, as the eager ``_binary`` runs it: every ds operand placed on
+        ``placed``'s mesh and axes, grids grown alike, ``fn`` on each rank's
+        shards; sparse blocks run on the gathered operands and the result
+        is placed back."""
+        axes = placed.mesh_axes
+        if any(isinstance(v, DsArray) and v.is_sparse for v in vals):
+            out = self.lower(*[v._gathered() if isinstance(v, DsArray) else v
+                               for v in vals])
+            return out.distribute(*axes)
+        ds = [v.distribute(*axes) if isinstance(v, DsArray) else v
+              for v in vals]
+        grids = [v.stacked_grid for v in ds if isinstance(v, DsArray)]
+        common = (max(g[0] for g in grids), max(g[1] for g in grids))
+        ds = [v._pad_grid_to(common) if isinstance(v, DsArray) else v
+              for v in ds]
+        ref = next(v for v in ds if isinstance(v, DsArray))
+        out = self.fn(*[_pl.local(v.blocks) if isinstance(v, DsArray) else v
+                        for v in ds])
+        return DsArray(ref._placed(out), ref.grid, self.pad)
 
     def local_key(self):
         return ("bw", self.key)

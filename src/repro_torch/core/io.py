@@ -346,9 +346,21 @@ def save_blocks(dirpath: str, a: DsArray) -> None:
     arrays spill one ``blockrow_*.npy`` per block row; sparse arrays spill
     ``blockrow_*.data.npy`` + ``blockrow_*.indices.npy`` and record nse and
     flags in the metadata, so the round trip keeps the block format
-    without ever densifying."""
-    os.makedirs(dirpath, exist_ok=True)
+    without ever densifying.
+
+    A distributed array is written whole, as the reference writes it: every
+    rank gathers the blocks (a collective call), rank 0 writes the files,
+    and all ranks meet at a barrier before returning, so the files are the
+    ones the same blocks write undistributed."""
     a = a.ensure_zero_pad()
+    placed = a.is_distributed
+    if placed:
+        import torch.distributed as dist
+        a = a._gathered()
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return
+    os.makedirs(dirpath, exist_ok=True)
     meta = {"shape": list(a.shape), "block_shape": list(a.block_shape),
             "stacked_grid": list(a.stacked_grid),
             "format": a.block_format}
@@ -369,6 +381,8 @@ def save_blocks(dirpath: str, a: DsArray) -> None:
         json.dump(meta, f)
     for name, t in rows:
         np.save(os.path.join(dirpath, name), _host(t))
+    if placed:
+        dist.barrier()
 
 
 def load_blocks(dirpath: str, device="cuda") -> DsArray:

@@ -16,6 +16,11 @@ it: ``ceil(size / d)`` per rank, the last ones shorter or empty.  The ops
 pad grids to mesh multiples, so shards are even but where a caller asks
 for an exact grid (``DsArray._pad_grid_to``).
 
+A DTensor whose local shard is a ``meta`` tensor stands for a placed array
+in the lazy layer's metadata inference (``core.expr``): every collective
+here and in ``core.shmap_ops`` returns its result's shape on such a shard
+and moves nothing, so an op's recorded metadata is its eager run's.
+
 ``torch.distributed.tensor`` is imported only when a mesh is first used, so
 that ``import repro_torch`` does not pay for it.
 """
@@ -34,6 +39,20 @@ def is_dtensor(t) -> bool:
     """True for a ``DTensor`` (none can exist before its module is loaded)."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(t, mod.DTensor)
+
+
+def abstract(t):
+    """A DTensor of ``t``'s mesh, placements and shape over a ``meta``
+    shard (the lazy layer's metadata stand-in for a placed tensor)."""
+    loc = local(t)
+    return wrap(torch.empty(tuple(loc.shape), dtype=loc.dtype, device="meta"),
+                t.device_mesh, t.placements, t.shape)
+
+
+def signature(t) -> tuple:
+    """Hashable identity of a tensor's placement: ``()`` for a plain
+    tensor, else its mesh and placements."""
+    return (t.device_mesh, tuple(t.placements)) if is_dtensor(t) else ()
 
 
 def axis_size(mesh, axis: Optional[str]) -> int:
@@ -147,7 +166,7 @@ def rewrap(loc: torch.Tensor, like):
 def place(full: torch.Tensor, mesh, places: Sequence):
     """Place ``full``, which every rank holds alike (SPMD), on the mesh: each
     rank keeps its own shard, a view of ``full`` (no communication)."""
-    if full.device.type != mesh.device_type:
+    if full.device.type not in (mesh.device_type, "meta"):
         raise ValueError(f"blocks on {full.device} cannot be placed on a "
                          f"{mesh.device_type!r} mesh")
     loc = full[shard_slices(mesh, places, full.shape)]
@@ -156,7 +175,36 @@ def place(full: torch.Tensor, mesh, places: Sequence):
 
 def gather(t):
     """The whole tensor on every rank (an all-gather of the shards)."""
-    return t.full_tensor() if is_dtensor(t) else t
+    if not is_dtensor(t):
+        return t
+    if t.to_local().device.type == "meta":      # metadata inference
+        return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+    return t.full_tensor()
+
+
+def all_gather(loc: torch.Tensor, mesh, mesh_dim, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(loc, axis, axis=dim, tiled=True)``: the shards of
+    the ranks along the mesh dim ``mesh_dim`` (its index or name),
+    concatenated on ``dim`` in mesh order."""
+    import torch.distributed as dist
+    group = mesh.get_group(mesh_dim)
+    n = dist.get_world_size(group)
+    if loc.device.type == "meta":          # metadata inference: shapes only
+        return torch.cat([loc] * n, dim=dim)
+    loc = loc.contiguous()
+    parts = [torch.empty_like(loc) for _ in range(n)]
+    dist.all_gather(parts, loc, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_dim(loc: torch.Tensor, like, dim: int) -> torch.Tensor:
+    """This rank's partial ``loc`` with tensor dim ``dim`` made whole: an
+    :func:`all_gather` over the mesh dim that shards dim ``dim`` of ``like``
+    (``loc`` as it is when none does)."""
+    for i, p in enumerate(like.placements):
+        if p.is_shard() and p.dim == dim:
+            return all_gather(loc, like.device_mesh, i, dim)
+    return loc
 
 
 def reduce_shards(loc: torch.Tensor, like, dims: Sequence[int], op: str):
@@ -164,6 +212,8 @@ def reduce_shards(loc: torch.Tensor, like, dims: Sequence[int], op: str):
     that shards one of the tensor dims ``dims`` of ``like``; ``op`` is
     ``"sum"``, ``"max"`` or ``"min"``."""
     import torch.distributed as dist
+    if loc.device.type == "meta":
+        return loc
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}[op]
     mesh = like.device_mesh

@@ -37,6 +37,11 @@ stages:
 ``Plan.graph()`` records the aten ops of one run (``analysis.graphs``), the
 plane the analysis rules and the structural tests read.
 
+Distributed leaves (``core.expr``): the run lowers every node onto the
+eager op, which on a mesh runs its collectives; a fused chain's inner
+nodes are placed as the outer one (fusion requires it), so its composed
+function runs on each rank's shards.
+
 Block formats: a sparse ``Blockwise`` (its fn takes or gives a stacked
 COO) is a **fusion boundary** — a stacked-COO fn does not compose with
 dense per-block fns — but sparse nodes still CSE, and sparse plans cache by
@@ -229,7 +234,9 @@ def _fuse(roots: Sequence[Expr]) -> Tuple[List[Expr], int]:
                                        for gc in new_c.children)
                            and counts.get(id(orig_c), 2) == 1
                            and new_c.meta.blocks.shape == out.meta.blocks.shape
-                           and new_c.meta.grid == out.meta.grid)
+                           and new_c.meta.grid == out.meta.grid
+                           and _expr._placement(new_c.meta)
+                           == _expr._placement(out.meta))
                 if fusible:
                     idxs = [slot(gc) for gc in new_c.children]
                     specs.append(("call", (new_c.fn, idxs)))

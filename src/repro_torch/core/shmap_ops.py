@@ -18,6 +18,9 @@ the DTensor of the output shards on the same mesh:
   across the square mesh: every shard moves once.
 * ``colsum_psum`` — paper Fig. 5: per-rank column-of-blocks partial sums,
   one all-reduce over the ``axes[0]`` mesh dim.
+* ``matmul_ta_psum`` — ``Aᵀ @ B`` of operands placed alike: each rank's
+  block rows gathered along ``axes[1]``, one local GEMM with the
+  transpose folded in, the partials all-reduced over ``axes[0]``.
 
 ``jax.lax.all_gather(tiled=True)`` is ``dist.all_gather`` plus a
 concatenation, ``ppermute`` a pair of ``isend``/``irecv`` with global peer
@@ -37,12 +40,17 @@ all-gathers the whole array) and place their result back on the mesh,
 where the reference leaves the schedule to XLA: ``_pad_grid_to`` to a grid
 that changes the shards, the structural ops (``getitem``, ``take_rows``,
 ``take_cols``, ``rechunk``, ``concat_rows``; hence ``slice_sharded``,
-``rechunk_sharded``, ``concat_rows_sharded``), ``matmul_ta``,
+``rechunk_sharded``, ``concat_rows_sharded``),
 ``apply_along_axis`` (so ``norm(axis)``), ``@`` with a replicated axis,
 ``gram`` (a tensor on every rank), and every op on sparse blocks but
 ``todense``/``collect``.  The elementwise ops, ``map_blocks``, ``astype``,
-``transpose``, the reductions and ``@`` of dense operands sharded on both
-grid dims (``summa_matmul``) work shard by shard.
+``transpose``, the reductions, ``@`` of dense operands sharded on both
+grid dims (``summa_matmul``) and ``matmul_ta`` of dense operands
+(``matmul_ta_psum``) work shard by shard.
+
+On ``meta`` shards (``core.placement``) every collective here returns the
+shape it would deliver and moves nothing: the lazy layer infers a recorded
+node's metadata by running its eager op on them.
 """
 
 from __future__ import annotations
@@ -102,20 +110,10 @@ def _coords(mesh, axes: Axes) -> Tuple[int, int]:
     return coord[names.index(axes[0])], coord[names.index(axes[1])]
 
 
-def _all_gather(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
-    """``jax.lax.all_gather(t, axis, axis=dim, tiled=True)``: the shards of
-    the ranks along the mesh dim ``axis``, concatenated on ``dim``."""
-    group = mesh.get_group(axis)
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
-
-
 def _exchange(t: torch.Tensor, send_to: int, recv_from: int) -> torch.Tensor:
     """One step of a ``ppermute``: send ``t`` to global rank ``send_to`` and
     return the tensor of the same shape received from ``recv_from``."""
-    if send_to == recv_from == dist.get_rank():
+    if send_to == recv_from == dist.get_rank() or t.device.type == "meta":
         return t
     out = torch.empty_like(t, memory_format=torch.contiguous_format)
     ops = [dist.P2POp(dist.isend, t.contiguous(), send_to),
@@ -151,8 +149,8 @@ def _summa_panels(a_loc: torch.Tensor, b_loc: torch.Tensor, mesh, axes: Axes):
     """SUMMA's collectives on this rank's shards: the A panel gathered along
     ``axes[1]`` (gi/dn, gk, ., .) and the B panel along ``axes[0]`` (gk,
     gj/dm, ., .)."""
-    return (_all_gather(a_loc, 1, mesh, axes[1]),
-            _all_gather(b_loc, 0, mesh, axes[0]))
+    return (_pl.all_gather(a_loc, mesh, axes[1], 1),
+            _pl.all_gather(b_loc, mesh, axes[0], 0))
 
 
 def _cannon_panels(a_loc: torch.Tensor, b_loc: torch.Tensor, mesh, axes: Axes):
@@ -200,6 +198,35 @@ def cannon_matmul(a: DsArray, b: DsArray, mesh, axes: Axes = ("data", "model"),
     return DsArray(_result(acc, mesh, axes, shape), _out_grid(a, b))
 
 
+def matmul_ta_psum(a: DsArray, b: DsArray, mesh, axes: Axes = ("data", "model")
+                   ) -> DsArray:
+    """C = Aᵀ @ B for A and B placed alike, rows over ``axes[0]`` and
+    columns over ``axes[1]`` (either may be ``None``): each rank gathers its
+    block rows of A and of B along ``axes[1]``, contracts them with the
+    transpose read through strides (one ``local_matmul``, so one
+    ``stacked_matmul`` launch on the card), and the partial products are
+    all-reduced over ``axes[0]`` (paper Fig. 5's reduction, over the sample
+    blocks).  Neither operand is gathered whole; every rank holds C, whose
+    blocks are then placed ``(axes[0], axes[1])``."""
+    from repro_torch.kernels.matmul.ops import local_matmul
+    if a.shape[0] != b.shape[0] or a.block_shape[0] != b.block_shape[0]:
+        raise ValueError("matmul_ta_psum requires matching row grids")
+    a = a.distribute(mesh, axes).ensure_zero_pad()
+    b = b.distribute(mesh, axes).ensure_zero_pad()
+    if a.stacked_grid[0] != b.stacked_grid[0]:
+        gk = max(a.stacked_grid[0], b.stacked_grid[0])
+        a = a._pad_grid_to((gk, a.stacked_grid[1]))
+        b = b._pad_grid_to((gk, b.stacked_grid[1]))
+    ap = _pl.gather_dim(_pl.local(a.blocks), a.blocks, 1)
+    bp = _pl.gather_dim(_pl.local(b.blocks), b.blocks, 1)
+    part = local_matmul(ap, bp, out_dtype=torch.promote_types(a.dtype, b.dtype),
+                        transpose_a=True)
+    part = _pl.reduce_shards(part.contiguous(), a.blocks, (0,), "sum")
+    out = DsArray(part, BlockGrid((a.shape[1], b.shape[1]),
+                                  (a.block_shape[1], b.block_shape[1])))
+    return out.distribute(mesh, axes)
+
+
 def transpose_pp(a: DsArray, mesh, axes: Axes = ("data", "model")) -> DsArray:
     """Transpose = local block transpose + ONE mirrored exchange (square
     mesh): rank (r, c) transposes its shard and sends it to rank (c, r), so
@@ -229,7 +256,7 @@ def colsum_psum(a: DsArray, mesh, axes: Axes = ("data", "model")) -> DsArray:
     x = _pl.local(a.blocks)                         # (gn/dn, gm/dm, bn, bm)
     partial = x.sum(dim=(0, 2), dtype=torch.int32 if not x.dtype.is_floating_point
                     else None)                       # (gm/dm, bm)
-    dist.all_reduce(partial, group=mesh.get_group(axes[0]))
+    _pl.reduce_shards(partial, a.blocks, (0,), "sum")
     gm, bm = a.stacked_grid[1], a.block_shape[1]
     places = _pl.reduced(a.blocks.placements, (0,))
     blocks = _pl.wrap(partial[None, :, None, :], mesh, places, (1, gm, 1, bm))

@@ -113,6 +113,8 @@ class LinearRegression(BaseRegressor):
             # QR factors are dense whatever the input; centering would
             # densify anyway — sparse callers keep the normal equations
             raise ValueError("tsqr solver supports dense inputs only")
+        # the leaf QRs read whole block rows: on a mesh, the gathered blocks
+        x = x._gathered()
         n, m = x.shape
         if n < m:
             raise ValueError("tsqr solver needs a tall (n >= m) input")

@@ -4,19 +4,22 @@
         --batch 4 --prompt-len 256 --gen 64            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 The port of ``repro.launch.serve`` for every ported architecture: the dense
 and VLM transformers (KV caches, rolling buffers on windowed layers; the
-VLM serves text), mamba2 (constant-size conv and SSD states) and zamba2
-(both).  Weights are random, drawn from ``--seed``.
+VLM serves text), mamba2 (constant-size conv and SSD states), zamba2
+(both) and the encoder-decoder (its encoder runs once over ``prompt-len``
+speech frames into the cache, then the decoder prefills and decodes).
+Weights, prompts and frames are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,14 +44,20 @@ def prefill_into_cache(model: Model, params, cache, tokens: torch.Tensor):
 
 
 @torch.inference_mode()
-def generate(model: Model, params, prompt: torch.Tensor, gen: int
+def generate(model: Model, params, prompt: torch.Tensor, gen: int,
+             frames: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Greedy decode of ``gen`` tokens after ``prompt`` (B, T): returns the
     new tokens (B, gen) and the host-clock seconds of the prefill and of the
-    decode (each ending in a device sync)."""
+    decode (each ending in a device sync).  An encoder-decoder takes its
+    encoder ``frames`` (B, T_enc, F): they are encoded once into the cache,
+    inside the prefill's time."""
     b, t = prompt.shape
-    cache = model.init_cache(b, t + gen, device=prompt.device)
+    kw = {} if frames is None else {"enc_len": frames.shape[1]}
+    cache = model.init_cache(b, t + gen, device=prompt.device, **kw)
     t0 = time.perf_counter()
+    if frames is not None:
+        cache["enc_out"] = model.module.encode(params, model.cfg, frames)
     logits, cache = prefill_into_cache(model, params, cache, prompt)
     _sync(prompt.device)
     prefill_s = time.perf_counter() - t0
@@ -85,7 +94,11 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, float]]:
         params = model.init(gen, device)
         prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                generator=gen, device=device)
-    tokens, times = generate(model, params, prompt, args.gen)
+        frames = None
+        if cfg.family == "encdec":
+            frames = torch.randn((args.batch, args.prompt_len, cfg.frontend_dim),
+                                 generator=gen, device=device)
+    tokens, times = generate(model, params, prompt, args.gen, frames)
     tps = args.batch * (args.gen - 1) / max(times["decode_s"], 1e-9)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} device={device}")

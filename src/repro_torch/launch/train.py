@@ -5,6 +5,8 @@
         --smoke --device cpu --steps 200 --batch 8 --seq 128 --ckpt-dir CKPT
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --steps 100 --batch 2 --seq 4096           # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-medium --batch 4 --seq 1024   # 1,024 frames, 1,024 tokens
 
 One card, or the CPU when ``--device cpu`` names it.  Features: the
 deterministic synthetic pipeline, AdamW + cosine, per-group remat, async

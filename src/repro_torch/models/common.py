@@ -66,7 +66,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D): the function of the reference's
     ``attention_xla`` (scale 1/sqrt(D)), which needs no q-chunk scan or band
     gather here: the kernel keeps its score tiles on chip and skips the key
-    tiles the masks hide."""
+    tiles the masks hide.  ``causal=False`` with Tq != Tk (an encoder's
+    self-attention, a decoder's cross-attention) goes to the kernel as it
+    is: every query sees every key."""
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, q_offset=q_offset)
 

@@ -8,9 +8,10 @@ interface per architecture family.
     cache = model.init_cache(batch, max_len, device="cuda")
     logits, cache = model.decode_step(params, cache, tokens)
 
-The ``dense`` and ``vlm`` families (``transformer``), ``ssm`` and
-``hybrid`` are ported; ``moe`` and ``encdec`` raise ``KeyError``
-(ROADMAP.md).
+The ``dense`` and ``vlm`` families (``transformer``), ``ssm``, ``hybrid``
+and ``encdec`` (whose ``patches`` are the encoder frames, and whose
+``init_cache`` takes ``enc_len=``, the encoder slots, as the reference's
+``**kw`` does) are ported; ``moe`` raises ``KeyError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any
 import torch
 
 from repro_torch.core.dsarray import resolve_device
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 _FAMILY_MODULES = {
@@ -29,6 +30,7 @@ _FAMILY_MODULES = {
     "vlm": transformer,
     "ssm": ssm,
     "hybrid": hybrid,
+    "encdec": encdec,
 }
 
 
@@ -46,9 +48,9 @@ class Model:
     def loss(self, params, tokens, labels, patches=None):
         return self.module.loss_fn(params, self.cfg, tokens, labels, patches)
 
-    def init_cache(self, batch: int, max_len: int, device="cuda"):
+    def init_cache(self, batch: int, max_len: int, device="cuda", **kw):
         return self.module.init_cache(self.cfg, batch, max_len,
-                                      resolve_device(device))
+                                      resolve_device(device), **kw)
 
     def decode_step(self, params, cache, tokens):
         return self.module.decode_step(params, self.cfg, cache, tokens)

@@ -289,6 +289,11 @@ FLASH_CASES = [  # tq, tk, hq, hkv, d, causal, window, cap, qoff
     (1, 300, 8, 4, 256, False, 0, 50.0, 0),    # gemma2 decode: D = 256 on the rows kernel
     (200, 260, 4, 2, 80, True, 0, 0.0, 60),    # D = 80 with q_offset
     (150, 150, 2, 1, 112, True, 48, 0.0, 0),   # D = 112: a zeroed padding chunk
+    # the encoder-decoder (seamless-m4t-medium: 16 heads of 64)
+    (200, 200, 16, 16, 64, False, 0, 0.0, 0),  # bidirectional encoder
+    (96, 600, 16, 16, 64, False, 0, 0.0, 0),   # cross-attention, Tq < Tk
+    (500, 70, 4, 4, 64, False, 0, 0.0, 0),     # Tq > Tk, a ragged last key tile
+    (1, 256, 16, 16, 64, False, 0, 0.0, 0),    # decode cross-attention: rows, every slot
 ]
 
 
@@ -437,6 +442,34 @@ def test_flash_attention_grads_on_the_card_match_plain(card, dtype, route, windo
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, g_, w_ in zip("qkv", got, want):
         assert g_.dtype == dtype
+        scale = max(1.0, float(w_.float().abs().max()))
+        torch.testing.assert_close(g_.float(), w_.float(), atol=atol * scale,
+                                   rtol=0, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "tile")])
+def test_flash_attention_grads_non_causal_rectangular(card, dtype, route):
+    """The encoder-decoder's forms under autograd on the card: non-causal
+    attention with Tq != Tk at D = 64 (cross-attention), the forward one
+    launch by ``route``, the backward none, the gradients autograd's of the
+    plain version."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn((2, 4, 96, 64), generator=g, device=card).to(dtype).requires_grad_()
+    k, v = (torch.randn((2, 4, 300, 64), generator=g, device=card).to(dtype)
+            .requires_grad_() for _ in range(2))
+    do = torch.randn((2, 4, 96, 64), generator=g, device=card).to(dtype)
+    kw = dict(causal=False)
+    out = _routed(fk.flash_attention.route_launches, route,
+                  lambda: flash_attention(q, k, v, **kw))
+    before = dict(fk.flash_attention.route_launches)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert fk.flash_attention.route_launches == before
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*plain, **kw), plain, do)
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g_, w_ in zip("qkv", got, want):
         scale = max(1.0, float(w_.float().abs().max()))
         torch.testing.assert_close(g_.float(), w_.float(), atol=atol * scale,
                                    rtol=0, msg=f"d{name}")

@@ -8,11 +8,16 @@ runs them) and through ``repro_torch.core.shmap_ops`` on four gloo ranks
 4 x 1 and 1 x 4 meshes.  Every case of :func:`_cases` is compared on every
 rank: values (rtol = atol = 1e-4 for floats, exact for permutations and
 selections), shape, dtype, ``pad_state``, padded grid, ``block_format``, and
-the placement of the reference's sharding.  A one-rank gloo group in this
-process holds ``distribute_sparse`` to the reference's one-device mesh and
+the placement of the reference's sharding.  The estimators (K-means, PCA,
+Ridge), ``io.save_blocks`` and ``checkpoint.save`` of a distributed array
+are cases too, compared as host arrays (labels and file bytes exactly).  A
+one-rank gloo group in this process holds ``distribute_sparse``, the
+estimators, the spill and the checkpoint to the reference's one-device
+mesh, lazy plans over a distributed array to their eager results, and
 checks that no kernel wrapper takes a DTensor.
 """
 
+import importlib
 import inspect
 import json
 import os
@@ -39,11 +44,12 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 WORLD = 4
 
 
-def _cases(pkg, so, fa, meshes):
+def _cases(pkg, so, fa, meshes, files=None):
     """name -> thunk over one package (``pkg``: ``repro.core`` or
     ``repro_torch``; ``so``: its ``shmap_ops``; ``fa``: its ``from_array``;
     ``meshes``: ``{"22": (2, 2), "41": (4, 1), "14": (1, 4)}`` meshes over
-    the axes ``("data", "model")``)."""
+    the axes ``("data", "model")``; ``files``: a directory every rank
+    sees)."""
     rng = np.random.default_rng(20261017)
     x = rng.normal(size=(36, 50)).astype(np.float32)   # grid 5 x 7: ragged
     y = rng.normal(size=(50, 20)).astype(np.float32)
@@ -101,6 +107,89 @@ def _cases(pkg, so, fa, meshes):
     out["replicated_axis"] = lambda: A.distribute(m22, ("data", None))
     out["replicated_axis_scale"] = lambda: A.distribute(m22, ("data", None)) * 2.0
     out["replicated_axis_sum1"] = lambda: A.distribute(m22, ("data", None)).sum(axis=1)
+    # the estimators, the spill and the checkpoint of a distributed array
+    # (ROADMAP.md §3), as host arrays
+    yv = rng.normal(size=(36, 1)).astype(np.float32)
+    q0 = rng.normal(size=(50, 2)).astype(np.float32)
+    fitted = {}
+
+    def mod(name):
+        return importlib.import_module(pkg.__name__.split(".")[0] + "." + name)
+
+    def host(v):
+        return np.asarray(v.collect() if hasattr(v, "collect") else v)
+
+    def fit(kind, tag):
+        if (kind, tag) not in fitted:
+            x = A.distribute(meshes[tag])
+            if kind == "kmeans":
+                est = mod("algorithms.kmeans").KMeans(n_clusters=3, max_iter=3)
+                est.fit(x)
+            elif kind == "ridge":
+                est = mod("estimators.linear").Ridge(alpha=0.1)
+                est.fit(x, fa(yv, (8, 1)).distribute(meshes[tag], ("data", None)))
+            else:       # PCA from one start in both packages
+                lin = mod("algorithms.linalg")
+                if pkg.__name__ == "repro_torch":
+                    import torch
+                    owner, name = lin, "_initial_q"
+                    start = lambda m_, k_, seed, device: torch.as_tensor(q0, device=device)
+                else:
+                    import jax.numpy as jnp
+                    owner, name = lin.jax.random, "normal"
+                    start = lambda key, shape, *a, **kw: jnp.asarray(q0)
+                saved = getattr(owner, name)
+                setattr(owner, name, start)
+                try:
+                    est = lin.PCA(n_components=2).fit(x)
+                finally:
+                    setattr(owner, name, saved)
+            fitted[kind, tag] = est
+        return fitted[kind, tag]
+
+    def pca_signs(tag):
+        comps = host(fit("pca", tag).components_)
+        return np.sign(comps[np.arange(len(comps)), np.abs(comps).argmax(1)])
+
+    def spill(tag, a):
+        d = os.path.join(files, f"spill_{tag}")
+        mod("core.io").save_blocks(d, a)
+        return np.frombuffer(b"".join(open(os.path.join(d, f), "rb").read()
+                                      for f in sorted(os.listdir(d))), np.uint8)
+
+    def checkpointed(tag):
+        ck = mod("checkpoint.checkpoint")
+        leaf = A.distribute(meshes[tag]).blocks
+        d = os.path.join(files, f"ckpt_{tag}")
+        ck.save(d, 0, {"w": leaf})
+        kw = {"device": "cpu"} if pkg.__name__ == "repro_torch" else {}
+        back = ck.restore(d, 0, {"w": np.zeros(leaf.shape, np.float32)}, **kw)
+        return host(back["w"])
+
+    for tag in meshes:
+        out[f"save_blocks_{tag}"] = lambda tag=tag: spill(tag, A.distribute(meshes[tag]))
+        out[f"checkpoint_{tag}"] = lambda tag=tag: checkpointed(tag)
+    # the estimators on the meshes that shard both grid dims and the rows
+    # alone (the reference compiles each fit per mesh: the file's time)
+    for tag in ("22", "41"):
+        out[f"kmeans_fit_{tag}"] = lambda tag=tag: host(fit("kmeans", tag).centers_)
+        out[f"kmeans_predict_{tag}"] = lambda tag=tag: host(
+            fit("kmeans", tag).predict(A.distribute(meshes[tag])))
+        out[f"kmeans_score_{tag}"] = lambda tag=tag: fit("kmeans", tag).score(
+            A.distribute(meshes[tag]))
+        out[f"pca_fit_{tag}"] = lambda tag=tag: np.concatenate([
+            (host(fit("pca", tag).components_) * pca_signs(tag)[:, None]).ravel(),
+            host(fit("pca", tag).explained_variance_), host(fit("pca", tag).mean_).ravel()])
+        out[f"pca_transform_{tag}"] = lambda tag=tag: host(
+            fit("pca", tag).transform(A.distribute(meshes[tag]))) * pca_signs(tag)
+        out[f"ridge_fit_{tag}"] = lambda tag=tag: np.append(
+            host(fit("ridge", tag).coef_), fit("ridge", tag).intercept_).astype(np.float32)
+        out[f"ridge_predict_{tag}"] = lambda tag=tag: host(
+            fit("ridge", tag).predict(A.distribute(meshes[tag])))
+    # a grid every mesh divides: the spill of the distributed array is the
+    # undistributed array's, byte for byte
+    out["save_blocks_even"] = lambda: spill("even", Z.distribute(m22))
+    out["save_blocks_even_plain"] = lambda: spill(f"even_plain_{os.getpid()}", Z)
     return out
 
 
@@ -110,7 +199,8 @@ CASE_NAMES = list(_cases(None, None, lambda *a: None,
 EXACT = {"distribute", "grid_slice", "filter", "ragged_distribute", "ragged_slice",
          "ragged_filter", "ragged_rechunk", "ragged_add", "ragged_T",
          "replicated_axis", "replicated_axis_scale"}
-EXACT_PREFIXES = ("transpose_pp", "slice_sharded", "rechunk", "concat_rows")
+EXACT_PREFIXES = ("transpose_pp", "slice_sharded", "rechunk", "concat_rows",
+                  "kmeans_predict", "save_blocks", "checkpoint")
 # where the port's placement is its own, documented choice (values, shape,
 # pad state as the reference's; grid the reference's rounded up to the
 # mesh): the reference drops its sharding for a new grid that does not
@@ -124,6 +214,9 @@ PORT_PLACED = {"ragged_slice": "S0,S1", "ragged_filter": "S0,S1",
 
 _RECORD = """
 def record(out, place):
+    if isinstance(out, np.ndarray):
+        return {"value": out}, {"array": True, "shape": list(out.shape),
+                                "dtype": str(out.dtype)}
     if not hasattr(out, "grid"):
         return {"value": np.asarray(out, dtype=np.float64)}, {"scalar": True}
     leaf = out.blocks.data if out.block_format == "bcoo" else out.blocks
@@ -150,7 +243,7 @@ def run_all(cases, place, prefix):
 """
 
 _REF = """
-import json, sys
+import importlib, json, os, sys
 import numpy as np
 from repro import core as pkg
 from repro.core import shmap_ops as so
@@ -166,11 +259,13 @@ def place(leaf):
 meshes = {{"22": make_mesh((2, 2), ("data", "model")),
           "41": make_mesh((4, 1), ("data", "model")),
           "14": make_mesh((1, 4), ("data", "model"))}}
-run_all(_cases(pkg, so, pkg.from_array, meshes), place, sys.argv[1])
+files = sys.argv[1] + "_files"
+os.makedirs(files)
+run_all(_cases(pkg, so, pkg.from_array, meshes, files), place, sys.argv[1])
 """
 
 _RANK = """
-import json, sys
+import importlib, json, os, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -191,7 +286,9 @@ def place(leaf):
 meshes = {{k: make_mesh(s, ("data", "model"), device_type="cpu")
           for k, s in (("22", (2, 2)), ("41", (4, 1)), ("14", (1, 4)))}}
 fa = lambda a, bs: pkg.from_array(a, bs, device="cpu")
-run_all(_cases(pkg, so, fa, meshes), place, prefix)
+files = os.path.join(os.path.dirname(prefix), "port_files")
+os.makedirs(files, exist_ok=True)
+run_all(_cases(pkg, so, fa, meshes, files), place, prefix)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -262,6 +359,14 @@ def test_case_matches_reference(runs, name):
             assert got["error"].split(":")[0] == want["error"].split(":")[0]
             continue
         assert "error" not in got, (rank, got["error"])
+        if want.get("array"):
+            assert (got["shape"], got["dtype"]) == (want["shape"], want["dtype"]), \
+                (rank, got, want)
+            if name.startswith(EXACT_PREFIXES):
+                np.testing.assert_array_equal(vals[name], ref_vals[name])
+            else:
+                np.testing.assert_allclose(vals[name], ref_vals[name], **TOL)
+            continue
         if want.get("scalar"):
             np.testing.assert_allclose(vals[name], ref_vals[name], rtol=1e-4,
                                        atol=1e-3)
@@ -299,6 +404,22 @@ def test_cases_cover_the_schedules_and_the_structural_ops(runs):
                          "filter", "summa_22", "cannon_22", "transpose_pp_22"))
     assert ref_meta["colsum_psum_22"]["place"] == "R,S1"
     assert ref_meta["replicated_axis"]["place"] == "S0,R"
+    # the estimators, the spill and the checkpoint ran on every mesh
+    for meta, _ in [(ref_meta, None)] + ports:
+        for name in CASE_NAMES:
+            if name.startswith(("kmeans_", "pca_", "ridge_", "save_blocks",
+                                "checkpoint")):
+                assert "error" not in meta[name], (name, meta[name])
+
+
+def test_spill_of_a_distributed_array_is_the_undistributed_ones(runs):
+    """On a grid the mesh divides, ``save_blocks`` of the distributed array
+    writes the bytes the undistributed array writes, in both packages."""
+    (ref_meta, ref_vals), ports = runs
+    plain = ref_vals["save_blocks_even_plain"]
+    np.testing.assert_array_equal(ref_vals["save_blocks_even"], plain)
+    for meta, vals in ports:
+        np.testing.assert_array_equal(vals["save_blocks_even"], plain)
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +553,150 @@ def test_matmul_of_distributed_arrays_never_hands_a_dtensor_to_the_kernel(
     assert seen and all(t == ("Tensor", "Tensor") for t in seen), seen
 
 
-def test_lazy_plans_refuse_a_distributed_array(one_rank):
-    A = pt.from_array(np.ones((4, 4), np.float32), (2, 2),
-                      device="cpu").distribute(one_rank)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        A.lazy()
+LAZY_EXPRS = {
+    "chain": lambda a, b: ((a + 1.0) * a).abs().sqrt(),
+    "sum0": lambda a, b: (a * 2.0).sum(axis=0),
+    "sum": lambda a, b: (a * a).sum(),
+    "matmul": lambda a, b: a @ b,
+    "matmul_ta": lambda a, b: a.T @ a,
+    "power_body": lambda a, b: a.T @ (a @ b),
+    "slice": lambda a, b: a[3:17] - 1.0,
+}
+# the eager op each plan runs, where the optimizer rewrote it: the
+# transpose folded into ``matmul_ta``
+EAGER = {"matmul_ta": lambda a, b: pt.matmul_ta(a, a),
+         "power_body": lambda a, b: pt.matmul_ta(a, a @ b)}
+
+
+@pytest.mark.parametrize("expr", list(LAZY_EXPRS))
+def test_lazy_plan_over_a_distributed_array_equals_its_eager_result(one_rank, expr,
+                                                                   monkeypatch):
+    """A plan recorded over a distributed array runs its nodes as the eager
+    ops run on the mesh: the same values, grid, pad state and placement,
+    its recorded metadata that of the result, and no DTensor at a kernel."""
+    from repro_torch.kernels.matmul import ops
+    seen = []
+    real = ops.local_matmul
+
+    def spy(a, b, **kw):
+        seen.append((type(a).__name__, type(b).__name__))
+        return real(a, b, **kw)
+    monkeypatch.setattr(ops, "local_matmul", spy)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(20, 12)).astype(np.float32)
+    y = rng.normal(size=(12, 3)).astype(np.float32)
+    A = pt.from_array(x, (8, 4), device="cpu").distribute(one_rank)
+    B = pt.from_array(y, (4, 3), device="cpu")
+    fn = LAZY_EXPRS[expr]
+    want = EAGER.get(expr, fn)(A, B)
+    lazy = fn(A.lazy(), B)
+    got = lazy.compute()
+    if isinstance(want, torch.Tensor):
+        np.testing.assert_allclose(float(got), float(want), **TOL)
+        return
+    np.testing.assert_allclose(got.collect().numpy(), want.collect().numpy(), **TOL)
+    assert got.is_distributed and want.is_distributed
+    assert tuple(got.blocks.placements) == tuple(want.blocks.placements)
+    assert (got.stacked_grid, got.pad_state) == (want.stacked_grid, want.pad_state)
+    assert (lazy.stacked_grid, lazy.pad_state) == (got.stacked_grid, got.pad_state)
+    assert placement.is_dtensor(lazy.expr.meta.blocks)
+    assert all(t == ("Tensor", "Tensor") for t in seen), seen
+
+
+def test_kmeans_on_a_distributed_array_single_rank(one_rank, monkeypatch):
+    """``KMeans`` fit, predict and score of a distributed array equal the
+    reference's on a one-device mesh (labels exactly); the assignment
+    kernel's wrapper only ever sees plain tensors."""
+    import jax
+    from jax.sharding import Mesh
+    import repro.core as jx
+    from repro.algorithms.kmeans import KMeans as JKMeans
+    from repro_torch.algorithms import kmeans as kmod
+    seen = []
+    real = kmod.kmeans_assign_stacked
+
+    def spy(blocks, centers, n):
+        seen.append(type(blocks).__name__)
+        return real(blocks, centers, n)
+    monkeypatch.setattr(kmod, "kmeans_assign_stacked", spy)
+    x = np.random.default_rng(12).normal(size=(64, 48)).astype(np.float32)
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    ref = JKMeans(n_clusters=3, max_iter=3).fit(jx.from_array(x, (16, 16)).distribute(jmesh))
+    a = pt.from_array(x, (16, 16), device="cpu").distribute(one_rank)
+    km = pt.KMeans(n_clusters=3, max_iter=3).fit(a)
+    np.testing.assert_allclose(km.centers_.numpy(), np.asarray(ref.centers_), **TOL)
+    labels = km.predict(a)
+    assert labels.is_distributed
+    np.testing.assert_array_equal(labels.collect().numpy(),
+                                  np.asarray(ref.predict(jx.from_array(x, (16, 16))).collect()))
+    np.testing.assert_allclose(km.score(a), ref.score(jx.from_array(x, (16, 16))), rtol=1e-4)
+    assert seen and set(seen) == {"Tensor"}, seen
+
+
+def test_pca_and_ridge_on_a_distributed_array_single_rank(one_rank, monkeypatch):
+    """``PCA`` and ``Ridge`` fit through lazy plans over a distributed array,
+    and transform and predict it, as the reference does on one device."""
+    import jax.numpy as jnp
+    import repro.core as jx
+    from repro.algorithms import linalg as jlin
+    from repro.estimators.linear import Ridge as JRidge
+    from repro_torch.algorithms import linalg as plin
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(64, 48)).astype(np.float32)
+    y = rng.normal(size=(64,)).astype(np.float32)
+    q0 = rng.normal(size=(48, 2)).astype(np.float32)
+    monkeypatch.setattr(plin, "_initial_q",
+                        lambda m, k, seed, device: torch.as_tensor(q0, device=device))
+    monkeypatch.setattr(jlin.jax.random, "normal",
+                        lambda key, shape, *a, **kw: jnp.asarray(q0))
+    a = pt.from_array(x, (16, 16), device="cpu").distribute(one_rank)
+    xj = jx.from_array(x, (16, 16))
+    p, pj = plin.PCA(n_components=2).fit(a), jlin.PCA(n_components=2).fit(xj)
+    np.testing.assert_allclose(p.components_.numpy(), np.asarray(pj.components_), **TOL)
+    np.testing.assert_allclose(p.explained_variance_.numpy(),
+                               np.asarray(pj.explained_variance_), rtol=1e-4)
+    t = p.transform(a)
+    assert t.is_distributed
+    np.testing.assert_allclose(t.collect().numpy(), np.asarray(pj.transform(xj).collect()),
+                               **TOL)
+    r, rj = pt.Ridge(alpha=0.1).fit(a, y), JRidge(alpha=0.1).fit(xj, y)
+    np.testing.assert_allclose(r.coef_, rj.coef_, **TOL)
+    np.testing.assert_allclose(r.intercept_, rj.intercept_, **TOL)
+    np.testing.assert_allclose(r.predict(a).collect().numpy(),
+                               np.asarray(rj.predict(xj).collect()), **TOL)
+
+
+def test_save_blocks_of_a_distributed_array_single_rank(one_rank, tmp_path):
+    """The spill of a distributed array is the undistributed array's, byte
+    for byte, and ``load_blocks`` reads it back equal."""
+    from repro_torch.core import io
+    x = np.random.default_rng(14).normal(size=(40, 24)).astype(np.float32)
+    plain = pt.from_array(x, (16, 8), device="cpu")
+    io.save_blocks(str(tmp_path / "placed"), plain.distribute(one_rank))
+    io.save_blocks(str(tmp_path / "plain"), plain)
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert names == sorted(os.listdir(tmp_path / "placed")) and "meta.json" in names
+    for name in names:
+        assert (tmp_path / "placed" / name).read_bytes() == \
+            (tmp_path / "plain" / name).read_bytes(), name
+    back = io.load_blocks(str(tmp_path / "placed"), device="cpu")
+    np.testing.assert_array_equal(back.collect().numpy(), x)
+
+
+def test_checkpoint_save_of_a_dtensor_leaf_single_rank(one_rank, tmp_path):
+    """``checkpoint.save`` of a DTensor leaf writes the undistributed leaf's
+    files, and ``restore`` gives it back as a plain tensor."""
+    from repro_torch.checkpoint import checkpoint as ck
+    x = np.random.default_rng(15).normal(size=(40, 24)).astype(np.float32)
+    plain = pt.from_array(x, (16, 8), device="cpu")
+    ck.save(str(tmp_path / "placed"), 3, {"w": plain.distribute(one_rank).blocks,
+                                          "n": np.int32(7)})
+    ck.save(str(tmp_path / "plain"), 3, {"w": plain.blocks, "n": np.int32(7)})
+    for name in sorted(os.listdir(tmp_path / "plain" / "step_00000003")):
+        assert (tmp_path / "placed" / "step_00000003" / name).read_bytes() == \
+            (tmp_path / "plain" / "step_00000003" / name).read_bytes(), name
+    back = ck.restore(str(tmp_path / "placed"), 3,
+                      {"w": torch.zeros(plain.blocks.shape), "n": np.int32(0)},
+                      device="cpu")
+    assert not placement.is_dtensor(back["w"])
+    assert torch.equal(back["w"], plain.blocks)

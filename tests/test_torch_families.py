@@ -205,7 +205,7 @@ def test_gemma2_tree_is_groups_of_stacks():
 
 
 def test_unported_families_raise():
-    for arch in ("mixtral-8x7b", "seamless-m4t-medium"):
+    for arch in ("mixtral-8x7b",):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_config(arch)
         cfg = ModelConfig(**dataclasses.asdict(jax_get_smoke_config(arch)))
