@@ -342,6 +342,28 @@ raises and the script exits non-zero):
     peak); ``launch.serve --arch seamless-m4t-medium`` with 4 requests of
     256 frames and prompt tokens + 64 new tokens.  The kernels line adds
     the phase's launches (``encdec``) and the new shapes as ``cases``.
+18. the MoE family: mixtral-8x7b at its published width (d_model 4,096,
+    32 query heads of 128 over 8 KV heads, d_ff 14,336, 8 experts top-2,
+    capacity factor 1.25, vocab 32,000, window 4,096 on every layer) with
+    its depth cut to fit one card (93 GB in bf16 at 32 layers), bf16
+    weights from ``--seed`` with the norms redrawn, each step's launch
+    counts zeroed before and read after.  At 4 layers: the slots dropped
+    by each layer; ``forward`` on B 1 x T 8,192 (the window cuts), exactly
+    4 ``flash_attention`` launches, all ``wgmma`` (D = 128, GQA 32:8), its
+    logits within 2·E of the plain-attention forward (the forward without
+    its window must fail); float32 ``decode_step`` teacher-forced over 48
+    tokens on a check config with ``capacity_factor = n_experts``
+    (dropless, as the reference's SMOKE configs: at 1.25 the forward drops
+    slots that a one-token step never drops).  One layer's attention at
+    that shape against its plain version (without its window must fail),
+    timed beside its bound over the pairs the window leaves, the plain
+    version and SDPA (causal, no window: not the same function); decode
+    attention on ``rows`` at D = 128.  At 16 layers (47 GB): the forward
+    timed (median of 3 warm runs) and profiled by group (expert products,
+    the dispatch's torch ops, attention, the fp32 logits), 2 decode steps
+    profiled, and ``serve.generate`` with 4 requests of 256 + 64 tokens.
+    The kernels line adds the phase's launches (``moe``) and the new
+    shapes as ``cases``.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -1893,27 +1915,44 @@ KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
 
 
-def device_profile(torch, fn, what: str, tag: str = "[8]"):
+def device_profile(torch, fn, what: str, tag: str = "[8]", ranges=None):
     """Runs ``fn`` once under ``torch.profiler`` and prints the device time
     of its kernels by group (the port's kernels, cuBLAS, the rest of the
     torch ops), the top kernels, and the device's busy share of the
-    window's host-clock time; returns the summary.  A trace without device
-    time prints 'not measured'."""
+    window's host-clock time; returns the summary.  ``ranges`` {name:
+    (module, attribute)}: each function is wrapped in a ``record_function``
+    range of that name for the run (the package has no ranges), and the
+    summary's ``ranges`` holds the device time of the kernels launched
+    under each.  A trace without device time prints 'not measured'."""
+    import importlib
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    ranges = ranges or {}
+
+    def ranged(name, real):
+        def wrapper(*args, **kw):
+            with record_function(name):
+                return real(*args, **kw)
+        return wrapper
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a first kernel and a sync, so the trace is live before the window
-        # (kernels launched right after the profiler starts can go unseen)
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in ranges.items():
+            obj = importlib.import_module(mod)
+            stack.enter_context(patched(obj, attr, ranged(name, getattr(obj, attr))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a first kernel and a sync, so the trace is live before the window
+            # (kernels launched right after the profiler starts can go unseen)
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # a range's own device-side span is not a kernel
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and e.key not in ranges]
     busy = sum(ms for _, _, ms in kernels)
     if not kernels:
         print(f"{tag} profile {what}: the profiler recorded no device time: not measured")
@@ -1924,14 +1963,18 @@ def device_profile(torch, fn, what: str, tag: str = "[8]"):
                       if any(key in name for key in keys)), "other torch ops")
         n, t = groups.get(group, (0, 0.0))
         groups[group] = (n + count, t + ms)
+    spans = {name: sum(e.device_time_total for e in prof.events()
+                       if e.name == name and e.device_type == DeviceType.CPU) / 1e3
+             for name in ranges}
     top = sorted(kernels, key=lambda k: -k[2])[:6]
     print(f"{tag} profile {what}: window {wall_ms:.3f} ms (host clock, profiler on), "
           f"device busy {busy:.3f} ms ({busy / wall_ms:.3f} of it); by group: "
           + "; ".join(f"{g} {t:.3f} ms in {n} launches" for g, (n, t) in
-                      sorted(groups.items(), key=lambda kv: -kv[1][1])), flush=True)
+                      sorted(groups.items(), key=lambda kv: -kv[1][1]))
+          + (f"; under the ranges: {json.dumps(spans)} ms" if ranges else ""), flush=True)
     for name, count, ms in top:
         print(f"{tag}   {ms:10.3f} ms  x{count:<5d} {name[:110]}")
-    return {"what": what, "wall_ms": wall_ms, "busy_ms": busy,
+    return {"what": what, "wall_ms": wall_ms, "busy_ms": busy, "ranges": spans,
             "groups": {g: {"launches": n, "ms": t} for g, (n, t) in groups.items()}}
 
 
@@ -5166,30 +5209,38 @@ def attention_pairs(t: int, window: int) -> int:
     return window * (window + 1) // 2 + (t - window) * window
 
 
-def gemma_attention(torch, gen, cfg, ck):
-    """One gemma2 layer's attention at the forward's shape (B 1, Hq 8, Hkv
-    4, T 8192, D 256, bf16, causal, soft-cap 50): windowed (the local
-    layers) against its plain version, with the same attention without its
-    window as a control that must fail the limit; windowed and global
-    (the global layers) timed beside their bounds over the pairs each
-    sees, the plain version and SDPA (causal, no window, no soft-cap: not
-    the same function); the decode shape (4 sequences, one query against a
-    full 4,096-slot rolling cache) on the rows kernel."""
+def model_attention(torch, gen, cfg, ck, name: str, tag: str, b: int, t: int, windows,
+                    decode_cases):
+    """One layer's attention of ``cfg`` (Hq, Hkv, D, soft-cap) at a
+    forward's shape (B ``b``, T ``t``, bf16, causal), once for each window
+    in ``windows`` (0: global), on ``wgmma`` against its plain version (a
+    zeroed output and, for a window, the same attention without it must
+    fail the limit), timed beside its bound over the pairs it sees, the
+    plain version and SDPA (causal, no window, no soft-cap: the same
+    function only without both); then decode attention on ``rows``: 4
+    sequences, one query each, for each (slots, valid slots, what) in
+    ``decode_cases``, beside SDPA over the valid slots.  Returns the
+    rows."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
     bf16 = torch.bfloat16
-    b, hq, hkv, t, d = GEMMA_BATCH, cfg.n_heads, cfg.n_kv_heads, GEMMA_SEQ, cfg.hd
+    hq, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.attn_softcap
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
+    def sdpa_label(window: int) -> str:
+        missing = (["no window"] if window else []) + (["no soft-cap"] if cap else [])
+        return ", ".join(["SDPA causal"] + missing) + (
+            " (not the same function)" if missing else " (the same function)")
+
     q, k, v = rnd(b, hq, t, d), rnd(b, hkv, t, d), rnd(b, hkv, t, d)
     rows = []
-    for window in (cfg.attn_window, 0):
-        kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
-                  sm_scale=d ** -0.5, q_offset=0, kv_len=t)
-        label = (f"gemma2 prefill B={b} Hq={hq} Hkv={hkv} T={t} D={d} bf16 causal "
-                 f"window={window} softcap={cfg.attn_softcap}, wgmma")
+    for window in windows:
+        kw = dict(causal=True, window=window, softcap=cap, sm_scale=d ** -0.5,
+                  q_offset=0, kv_len=t)
+        label = (f"{name} prefill B={b} Hq={hq} Hkv={hkv} T={t} D={d} bf16 causal "
+                 f"window={window} softcap={cap}, wgmma")
         out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention,
                      "wgmma", label)
         ref = attention_ref(q, k, v, **kw)
@@ -5201,8 +5252,8 @@ def gemma_attention(torch, gen, cfg, ck):
         if window:
             controls["no window"] = bad_count(attention_ref(q, k, v, **dict(kw, window=0)),
                                               ref, limit)
-        for name, n in controls.items():
-            ck(n > 0, f"{label}: control '{name}' passed the attention limit")
+        for control, n in controls.items():
+            ck(n > 0, f"{label}: control '{control}' passed the attention limit")
         del out, ref, limit
         ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
         pairs = attention_pairs(t, window)
@@ -5213,52 +5264,65 @@ def gemma_attention(torch, gen, cfg, ck):
                "plain_ms": timed(lambda: attention_ref(q, k, v, **kw), runs=3),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
                "pairs": pairs, "tflops": flops / ms / 1e9, "max_abs_err": err,
-               "controls": controls}
+               "controls": controls, "library": sdpa_label(window)}
         rows.append(row)
-        print(f"[16] {label}: max abs err {err:.3e}; controls fail at {controls}; "
+        print(f"{tag} {label}: max abs err {err:.3e}; controls fail at {controls}; "
               f"{ms:.3f} ms ({row['tflops']:.1f} TFLOP/s over {pairs} pairs), plain "
               f"{row['plain_ms']:.3f}, bound {b_ms:.3f} by {b_by}", flush=True)
     kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
     sdpa = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, kr, vr, is_causal=True, scale=d ** -0.5))
-    del kr, vr
+    del kr, vr, q, k, v
     for row in rows:
         row["library_ms"] = sdpa
-        row["library"] = "SDPA causal, no window, no soft-cap (not the same function)"
+    print(f"{tag} SDPA at {name}'s head shape (causal, no window, no soft-cap; K/V heads "
+          f"repeated before the call): {sdpa:.3f} ms", flush=True)
+    nb = int(FAMILY_SERVE[1])
+    for tc, kv_len, what in decode_cases:
+        q, k, v = rnd(nb, hq, 1, d), rnd(nb, hkv, tc, d), rnd(nb, hkv, tc, d)
+        kw = dict(causal=False, window=0, softcap=cap, sm_scale=d ** -0.5, q_offset=0,
+                  kv_len=kv_len)
+        label = (f"{name} decode B={nb} Hq={hq} Hkv={hkv} Tq=1 {what}, {kv_len} of {tc} "
+                 f"slots, D={d} bf16 softcap={cap}, rows")
+        out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention,
+                     "rows", label)
+        ref = attention_ref(q, k, v, **kw)
+        bad = bad_count(out, ref, attn_limit(q, k, v, kw, ref))
+        ck(bad == 0, f"{label}: {bad} elements beyond the attention limit")
+        err = float((out.double() - ref.double()).abs().max())
+        ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
+        flops = 4.0 * nb * hq * kv_len * d
+        nbytes = 2.0 * nb * d * (2 * hq + 2 * hkv * kv_len)
+        b_ms, b_by = bound(flops, nbytes, "bf16")
+        kr, vr = (x[:, :, :kv_len].repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kr, vr, scale=d ** -0.5))
+        row = {"name": "flash_attention.rows", "case": label, "ms": ms,
+               "plain_ms": timed(lambda: attention_ref(q, k, v, **kw)), "bound_ms": b_ms,
+               "bound_by": b_by, "flops": flops, "bytes": nbytes,
+               "tflops": flops / ms / 1e9, "max_abs_err": err, "library_ms": lib,
+               "library": "SDPA over the valid slots" + (
+                   ", no soft-cap (not the same function)" if cap else
+                   " (the same function)")}
+        rows.append(row)
+        print(f"{tag} {label}: max abs err {err:.3e}; {ms:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, SDPA {lib:.4f}, bound {b_ms:.4f} by {b_by}",
+              flush=True)
+        del q, k, v, kr, vr, out, ref
+    return rows
+
+
+def gemma_attention(torch, gen, cfg, ck):
+    """One gemma2 layer's attention at the forward's shape (B 1, Hq 8, Hkv
+    4, T 8192, D 256, soft-cap 50), windowed (the local layers) and global
+    (``model_attention``), the window's tile skip checked to save time;
+    the decode shape against a full 4,096-slot rolling cache."""
+    rows = model_attention(torch, gen, cfg, ck, "gemma2", "[16]", GEMMA_BATCH, GEMMA_SEQ,
+                           (cfg.attn_window, 0),
+                           [(cfg.attn_window, cfg.attn_window, "a full rolling cache")])
     ck(rows[0]["ms"] < WINDOW_SAVING * rows[1]["ms"],
        f"windowed attention {rows[0]['ms']:.3f} ms, not below {WINDOW_SAVING} x the "
        f"global layer's {rows[1]['ms']:.3f}: the window's tile skip saves nothing")
-    print(f"[16] SDPA at gemma2's head shape (causal, no window, no soft-cap; K/V heads "
-          f"repeated before the call): {sdpa:.3f} ms", flush=True)
-    del q, k, v
-    # decode: 4 sequences, one query, a full rolling cache of 4,096 slots
-    nb, tc = int(FAMILY_SERVE[1]), cfg.attn_window
-    q, k, v = rnd(nb, hq, 1, d), rnd(nb, hkv, tc, d), rnd(nb, hkv, tc, d)
-    kw = dict(causal=False, window=0, softcap=cfg.attn_softcap, sm_scale=d ** -0.5,
-              q_offset=0, kv_len=tc)
-    label = (f"gemma2 decode B={nb} Hq={hq} Hkv={hkv} Tq=1 rolling cache {tc} of {tc} "
-             f"D={d} bf16 softcap={cfg.attn_softcap}, rows")
-    out = routed(lambda: fk.flash_attention(q, k, v, **kw), fk.flash_attention, "rows",
-                 label)
-    ref = attention_ref(q, k, v, **kw)
-    bad = bad_count(out, ref, attn_limit(q, k, v, kw, ref))
-    ck(bad == 0, f"{label}: {bad} elements beyond the attention limit")
-    err = float((out.double() - ref.double()).abs().max())
-    ms = timed(lambda: fk.flash_attention(q, k, v, **kw))
-    flops = 4.0 * nb * hq * tc * d
-    nbytes = 2.0 * nb * d * (2 * hq + 2 * hkv * tc)
-    b_ms, b_by = bound(flops, nbytes, "bf16")
-    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
-    lib = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kr, vr, scale=d ** -0.5))
-    row = {"name": "flash_attention.rows", "case": label, "ms": ms,
-           "plain_ms": timed(lambda: attention_ref(q, k, v, **kw)), "bound_ms": b_ms,
-           "bound_by": b_by, "flops": flops, "bytes": nbytes, "tflops": flops / ms / 1e9,
-           "max_abs_err": err, "library_ms": lib,
-           "library": "SDPA, no soft-cap (not the same function)"}
-    rows.append(row)
-    print(f"[16] {label}: max abs err {err:.3e}; {ms:.4f} ms, plain {row['plain_ms']:.4f}, "
-          f"SDPA {lib:.4f}, bound {b_ms:.4f} by {b_by}", flush=True)
     return rows
 
 
@@ -5718,6 +5782,283 @@ def phase_encdec(torch, seed, smi):
     return total, attn_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the MoE family at its published width, its depth cut
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_BATCH, MOE_SEQ = "mixtral-8x7b", 1, 8192   # the 4,096 window cuts
+# the cut (mixtral is 93 GB in bf16): the checks at 4 of its 32 layers (12.1 GB,
+# and 24.2 GB for the float32 twin), the timed path at 16 (47.0 GB)
+MOE_CHECK_LAYERS, MOE_TIMED_LAYERS = 4, 16
+MOE_HEAD_CHUNK = 8                    # query heads a plain attention call scores at once
+MOE_SERVE = (4, 256, 64)              # serve.generate: requests, prompt, new tokens
+# the profile's ranges: the MoE layer, its expert MLPs, the logits
+MOE_RANGES = {"moe layer": ("repro_torch.models.moe", "moe_apply"),
+              "expert MLPs": ("repro_torch.models.moe", "experts"),
+              "logits": ("repro_torch.models.transformer", "_logits")}
+
+
+def attention_by_heads(q, k, v, **kw):
+    """The plain attention (``attention_ref``) over MOE_HEAD_CHUNK query
+    heads and their KV heads at a time: the same function, with the fp32
+    scores of 8 heads live instead of 32 (8.6 GB at T 8,192)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    group = q.shape[1] // k.shape[1]
+    step = max(1, MOE_HEAD_CHUNK // group)
+    return torch.cat([attention_ref(q[:, h * group:(h + step) * group], k[:, h:h + step],
+                                    v[:, h:h + step], **kw)
+                      for h in range(0, k.shape[1], step)], dim=1)
+
+
+class drop_counter:
+    """Within the block, each ``moe.routing`` call (one a layer) records
+    its dropped slots, its slots and its capacity."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.calls = moe.routing, []
+
+        def routing(router, x, cfg):
+            r = self.real(router, x, cfg)
+            self.calls.append((int((~r.keep).sum()), r.keep.numel(), r.cap))
+            return r
+
+        moe.routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.routing = self.real
+        return False
+
+
+def moe_checks(torch, gen, full, ck, rec, add):
+    """Phase 18's checks at MOE_CHECK_LAYERS layers: the dropped slots by
+    layer; the forward through the kernels against the plain-attention
+    forward (``family_forward``: within 2·E, the forward without its window
+    must fail); float32 decode teacher-forced on the dropless check config.
+    Returns the cut config."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(full, n_layers=MOE_CHECK_LAYERS)
+    model = build_model(cfg)
+    per_fwd = {"flash_attention": cfg.n_layers, "flash_attention/wgmma": cfg.n_layers,
+               "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+    with torch.inference_mode():
+        params = model.init(gen, "cuda")
+        redraw_family_norms(params, gen, 0.0)
+        n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ), generator=gen,
+                               device="cuda")
+        print(f"[18] {cfg.name} cut to {cfg.n_layers} layers: {n_params} parameters, bf16",
+              flush=True)
+        zero_counts()
+        with drop_counter() as drops:
+            model.forward(params, tokens)
+        got = read_counts()
+        expect_counts(got, per_fwd, f"{cfg.name} forward {tuple(tokens.shape)}, drops "
+                                    f"counted", "[18]")
+        add(got)
+        check(len(drops.calls) == cfg.n_layers, f"{len(drops.calls)} routing calls")
+        rec["dropped_share"] = [n / slots for n, slots, _ in drops.calls]
+        print(f"[18] slots dropped by layer at capacity {drops.calls[0][2]} (capacity factor "
+              f"{cfg.capacity_factor}, {drops.calls[0][1]} slots a layer): "
+              f"{[n for n, _, _ in drops.calls]}, shares {rec['dropped_share']}", flush=True)
+        unwindowed = build_model(dataclasses.replace(cfg, attn_window=0))
+        with patched(fops, "attention_ref", attention_by_heads):
+            rec["check"], params32, got = family_forward(
+                torch, model, params, tokens, per_fwd, "[18]",
+                ("no window", lambda: unwindowed.forward(params, tokens)[0]))
+        add(got)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # float32 decode, teacher-forced, on the dropless check config
+        short = tokens[:, :FAMILY_DECODE]
+        check_cfg = dataclasses.replace(cfg, dtype="float32",
+                                        capacity_factor=float(cfg.n_experts))
+        n_dec = FAMILY_DECODE * cfg.n_layers
+        per_decode = {"flash_attention": cfg.n_layers + n_dec, "flash_attention/rows": n_dec,
+                      "flash_attention/tile": cfg.n_layers, "flash_attention/wgmma": 0,
+                      "ssd_chunk": 0}
+        err, got_d, _, got = family_decode(
+            torch, build_model(check_cfg), params32, short, per_decode,
+            f"check config (not a workload) {cfg.name} float32 capacity_factor="
+            f"{check_cfg.capacity_factor} (dropless)", "[18]")
+        add(got)
+        ck(err < DECODE_TOL, f"{cfg.name} decode vs teacher forcing: {err}")
+        # the same steps against the forward at the published capacity
+        # factor, which drops slots a one-token step never drops: they may
+        # differ by design
+        full32, _ = build_model(dataclasses.replace(cfg, dtype="float32")).forward(
+            params32, short)
+        rec.update(decode_err=err,
+                   decode_vs_dropping_forward=float((got_d - full32).abs().max()))
+        print(f"[18] the same decode against the float32 forward at capacity factor "
+              f"{cfg.capacity_factor} (it may drop by design): max abs err "
+              f"{rec['decode_vs_dropping_forward']:.3e}", flush=True)
+    return cfg
+
+
+def moe_timed(torch, gen, full, rec, add):
+    """Phase 18's timed path at MOE_TIMED_LAYERS layers: the forward (its
+    launches, finite logits; the median of FORWARD_RUNS warm runs, the peak
+    memory), profiled by group (``device_profile`` with MOE_RANGES), 2 decode
+    steps profiled, and ``serve.generate`` with MOE_SERVE requests."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(full, n_layers=MOE_TIMED_LAYERS)
+    model = build_model(cfg)
+    per_fwd = {"flash_attention": cfg.n_layers, "flash_attention/wgmma": cfg.n_layers,
+               "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+    out = rec["timed"] = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = model.init(gen, "cuda")
+        redraw_family_norms(params, gen, 0.0)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["params"] = sum(t.numel() for t in pytree.tree_leaves(params))
+        out["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+        tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ), generator=gen,
+                               device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        out["forward_first_s"] = time.perf_counter() - t0
+        got = read_counts()
+        expect_counts(got, per_fwd, f"{cfg.name} cut to {cfg.n_layers} layers forward "
+                                    f"{tuple(tokens.shape)}", "[18]")
+        add(got)
+        check(tuple(logits.shape) == (MOE_BATCH, MOE_SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
+              f"{cfg.name}: logits {tuple(logits.shape)} or aux not finite")
+        out["aux"] = float(aux)
+        del logits, aux
+        runs = []
+        for _ in range(FORWARD_RUNS):
+            t0 = time.perf_counter()
+            model.forward(params, tokens)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        out.update(forward_runs_s=runs, forward_s=statistics.median(runs),
+                   forward_tok_per_s=tokens.numel() / statistics.median(runs),
+                   forward_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"[18] {cfg.name} cut to {cfg.n_layers} layers ({out['params']} parameters, "
+              f"{out['weights_gb']:.2f} GB; init {out['init_s']:.2f} s, peak "
+              f"{out['init_peak_gb']:.2f} GB): forward {tuple(tokens.shape)} "
+              f"{out['forward_s']:.4f} s (median of {FORWARD_RUNS} warm runs "
+              f"{[round(r, 4) for r in runs]}; the first {out['forward_first_s']:.3f} s), "
+              f"{out['forward_tok_per_s']:.0f} tokens/s, peak {out['forward_peak_gb']:.2f} GB",
+              flush=True)
+        out["profile"] = prof = device_profile(
+            torch, lambda: model.forward(params, tokens),
+            f"{cfg.name} ({cfg.n_layers} layers) forward {tuple(tokens.shape)}", "[18]",
+            ranges=MOE_RANGES)
+        if prof.get("busy_ms") and all(prof["ranges"].values()):
+            spans = prof["ranges"]
+            attn = prof["groups"].get("flash_attention", {}).get("ms", 0.0)
+            out["forward_groups_ms"] = {
+                "expert MLPs (bmm + fp32 activation)": spans["expert MLPs"],
+                "dispatch torch ops": spans["moe layer"] - spans["expert MLPs"],
+                "attention": attn, "logits (fp32)": spans["logits"],
+                "rest": prof["busy_ms"] - spans["moe layer"] - spans["logits"] - attn}
+            print(f"[18] the forward's device time by group: "
+                  f"{json.dumps(out['forward_groups_ms'])} ms", flush=True)
+        else:
+            print("[18] the forward's device time by group: not measured (no device time "
+                  "under the ranges)", flush=True)
+        nb, n_prompt, n_new = MOE_SERVE
+        cache = model.init_cache(nb, n_prompt + n_new, device="cuda")
+        step = tokens[:1, :1].repeat(nb, 1)
+
+        def decode_window():
+            cache["pos"] = n_prompt
+            for _ in range(2):
+                model.decode_step(params, cache, step)
+
+        decode_window()   # warm
+        out["decode_profile"] = prof = device_profile(
+            torch, decode_window, f"{cfg.name} ({cfg.n_layers} layers) 2 decode steps, "
+                                  f"batch {nb}, from position {n_prompt}", "[18]")
+        prompt = torch.randint(0, cfg.vocab_size, (nb, n_prompt), generator=gen,
+                               device="cuda")
+        del cache, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    served, times = serve.generate(model, params, prompt, n_new)
+    got = read_counts()
+    n_rows = cfg.n_layers * (n_prompt + n_new - 1)
+    expect_counts(got, {"flash_attention": n_rows, "flash_attention/rows": n_rows,
+                        "flash_attention/wgmma": 0, "ssd_chunk": 0},
+                  f"serve.generate {nb} x ({n_prompt} + {n_new})", "[18]")
+    add(got)
+    check(tuple(served.shape) == (nb, n_new), f"served {tuple(served.shape)}")
+    out["serve"] = {
+        "prefill_s": times["prefill_s"], "decode_s": times["decode_s"],
+        "decode_tok_per_s": nb * (n_new - 1) / times["decode_s"],
+        "launches_a_step": (sum(g["launches"] for g in prof["groups"].values()) / 2
+                            if prof.get("groups") else None),
+        "busy_share": prof["busy_ms"] / prof["wall_ms"] if prof.get("busy_ms") else None}
+    print(f"[18] serve.generate {nb} requests of {n_prompt} + {n_new} tokens on "
+          f"{cfg.n_layers} layers: {json.dumps(out['serve'])}", flush=True)
+
+
+def phase_moe(torch, seed, smi):
+    """Phase 18: mixtral-8x7b at its published width, its depth cut to fit
+    one card, through the normal entry points; returns the kernels'
+    launches by route over the phase's model runs and the rows of the new
+    attention shapes."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    ck = Checks("[18]")
+    rec = {"card": smi}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    torch.cuda.reset_peak_memory_stats()
+    total = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+
+    full = get_config(MOE_ARCH)
+    print(f"[18] {full.name}: {full.param_count()} parameters at its published "
+          f"{full.n_layers} layers (d_model {full.d_model}, {full.n_heads} heads of "
+          f"{full.hd} over {full.n_kv_heads} KV heads, d_ff {full.d_ff}, {full.n_experts} "
+          f"experts top-{full.top_k}, capacity factor {full.capacity_factor}, window "
+          f"{full.attn_window}, vocab {full.vocab_size}); cut to {MOE_CHECK_LAYERS} layers "
+          f"for the checks and {MOE_TIMED_LAYERS} for the timed path", flush=True)
+    cfg = moe_checks(torch, gen, full, ck, rec, add)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nb, n_prompt, n_new = MOE_SERVE
+    attn_rows = model_attention(
+        torch, gen, cfg, ck, "mixtral", "[18]", MOE_BATCH, MOE_SEQ, (cfg.attn_window,),
+        [(n_prompt + n_new, n_prompt + n_new // 2, "the server's cache"),
+         (cfg.attn_window, cfg.attn_window, "a full rolling cache")])
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_timed(torch, gen, full, rec, add)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["launches"] = {k: v for k, v in total.items() if v}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[18] card: {smi}; MoE phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return total, attn_rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5816,12 +6157,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     encdec, encdec_rows = phase_encdec(torch, args.seed, smi)
     attn_rows += encdec_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_rows = phase_moe(torch, args.seed, smi)
+    attn_rows += moe_rows
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
             for path, counts in (("train", trained), ("families", families),
-                                 ("encdec", encdec)):
+                                 ("encdec", encdec), ("moe", moe)):
                 line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
                 line["launches"] += counts.get(f"{kind}/{route}", 0)
                 if "launches_by_route" in line:

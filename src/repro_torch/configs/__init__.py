@@ -1,10 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config(arch_id)``.
 
-The same ids and aliases as ``repro.configs``.  One module per ported
+The same ids and aliases as ``repro.configs``.  One module per
 architecture, each exporting FULL (the published config) and SMOKE (same
-family, tiny dims, CPU-runnable): the dense, VLM, SSM, hybrid and
-encoder-decoder families.  The MoE architectures (mixtral, grok) raise
-``KeyError`` until their family is ported (ROADMAP.md).
+family, tiny dims, CPU-runnable): the dense, VLM, SSM, hybrid, MoE and
+encoder-decoder families.
 """
 
 import importlib
@@ -18,6 +17,8 @@ PORTED = (
     "yi_9b",
     "mamba2_370m",
     "seamless_m4t_medium",
+    "mixtral_8x7b",
+    "grok_1_314b",
 )
 
 # dashes/dots in CLI ids map to underscores in module names

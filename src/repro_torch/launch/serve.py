@@ -5,14 +5,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The port of ``repro.launch.serve`` for every ported architecture: the dense
-and VLM transformers (KV caches, rolling buffers on windowed layers; the
-VLM serves text), mamba2 (constant-size conv and SSD states), zamba2
-(both) and the encoder-decoder (its encoder runs once over ``prompt-len``
-speech frames into the cache, then the decoder prefills and decodes).
-Weights, prompts and frames are random, drawn from ``--seed``.
+The port of ``repro.launch.serve`` for every architecture: the dense, MoE
+and VLM transformers (KV caches, rolling buffers on windowed layers; a
+decode step's MoE dispatch is dropless; the VLM serves text), mamba2
+(constant-size conv and SSD states), zamba2 (both) and the
+encoder-decoder (its encoder runs once over ``prompt-len`` speech frames
+into the cache, then the decoder prefills and decodes).  Weights, prompts
+and frames are random, drawn from ``--seed``.  mixtral-8x7b (93 GB) and
+grok-1-314b (628 GB) do not fit one card at their published depth: serve
+a config with fewer layers through ``generate``.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -199,14 +200,18 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
 
 def stack_layer_params(n: int, init_fn: Callable[[int], Params]) -> Params:
     """Initialize ``n`` layers and stack each leaf along a new leading axis
-    (the reference's scan-over-layers layout)."""
-    return _stack([init_fn(i) for i in range(n)])
-
-
-def _stack(trees) -> Params:
-    return {key: (_stack([t[key] for t in trees]) if isinstance(trees[0][key], dict)
-                  else torch.stack([t[key] for t in trees]))
-            for key in trees[0]}
+    (the reference's scan-over-layers layout).  The layers are drawn in
+    order and each copied into a preallocated stack before the next is
+    drawn, so the peak is the stack and one layer (not the layers twice)."""
+    stack = None
+    for i in range(n):
+        layer = init_fn(i)
+        if stack is None:
+            stack = pytree.tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
+        for dst, src in zip(pytree.tree_leaves(stack), pytree.tree_leaves(layer)):
+            dst[i].copy_(src)
+        del layer
+    return stack
 
 
 def unstack(tree: Params, n: int):

@@ -8,10 +8,11 @@ interface per architecture family.
     cache = model.init_cache(batch, max_len, device="cuda")
     logits, cache = model.decode_step(params, cache, tokens)
 
-The ``dense`` and ``vlm`` families (``transformer``), ``ssm``, ``hybrid``
-and ``encdec`` (whose ``patches`` are the encoder frames, and whose
+Every family of the reference: ``dense``, ``moe`` and ``vlm``
+(``transformer``; its MoE layers in ``moe``), ``ssm``, ``hybrid`` and
+``encdec`` (whose ``patches`` are the encoder frames, and whose
 ``init_cache`` takes ``enc_len=``, the encoder slots, as the reference's
-``**kw`` does) are ported; ``moe`` raises ``KeyError`` (ROADMAP.md).
+``**kw`` does).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.models.config import ModelConfig
 
 _FAMILY_MODULES = {
     "dense": transformer,
+    "moe": transformer,
     "vlm": transformer,
     "ssm": ssm,
     "hybrid": hybrid,
@@ -62,6 +64,6 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY_MODULES:
-        raise KeyError(f"family {cfg.family!r} is not ported to repro_torch yet "
-                       f"(ported: {', '.join(_FAMILY_MODULES)}; see ROADMAP.md)")
+        raise KeyError(f"unknown family {cfg.family!r} (known: "
+                       f"{', '.join(_FAMILY_MODULES)})")
     return Model(cfg=cfg, module=_FAMILY_MODULES[cfg.family])

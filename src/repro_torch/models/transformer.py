@@ -1,11 +1,12 @@
 """Unified decoder-only transformer, the port of
-``repro.models.transformer`` for the dense and VLM families (gemma2, qwen,
-nemotron, yi, llava) and the hybrid's shared block.
+``repro.models.transformer`` for the dense, MoE and VLM families (gemma2,
+qwen, nemotron, yi, mixtral, grok, llava) and the hybrid's shared block.
 
 Features selected per ``ModelConfig``: GQA, RoPE, sliding windows, the
 gemma2 local/global alternation with sandwich norms and logit soft-caps,
-QKV bias (qwen), squared-ReLU (nemotron), the vision-patch prefix (llava).
-MoE layers (``n_experts > 0``) are not ported yet (ROADMAP.md).
+QKV bias (qwen), squared-ReLU (nemotron), MoE layers in place of the MLP
+(``n_experts > 0``: mixtral, grok; ``models/moe.py``), the vision-patch
+prefix (llava).
 
 The layers are stacked per group sub-layer, as the reference's scan over
 layer groups keeps them (gemma2's group is [local, global]; every other
@@ -23,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 
 Params = cm.Params
@@ -75,15 +77,15 @@ def _attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Params:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not ported "
-            f"to repro_torch yet (see ROADMAP.md)")
+    """One layer: ``moe`` in place of ``mlp`` when ``n_experts > 0``."""
     zeros = lambda: torch.zeros(cfg.d_model, dtype=dtype, device=device)  # noqa: E731
     p: Params = {"ln1": zeros(), "attn": _attn_init(gen, cfg, dtype, device),
-                 "ln2": zeros(),
-                 "mlp": cm.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                                    dtype, device)}
+                 "ln2": zeros()}
+    if cfg.n_experts > 0:
+        p["moe"] = moe.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = cm.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype,
+                               device)
     if cfg.local_global_period > 0:  # gemma2 sandwich norms
         p["ln1_post"] = zeros()
         p["ln2_post"] = zeros()
@@ -136,8 +138,16 @@ def _attn_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's MLP or MoE on the normed ``h``: (out, aux loss; 0.0 for
+    an MLP)."""
+    if cfg.n_experts > 0:
+        return moe.moe_apply(p["moe"], h, cfg)
+    return cm.mlp_apply(p["mlp"], h, cfg.mlp_type), 0.0
+
+
 def _block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, window: int) -> Tuple[torch.Tensor, float]:
+                 cfg: ModelConfig, window: int):
     """One transformer block; returns (x, aux_loss)."""
     sandwich = cfg.local_global_period > 0
     h = cm.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=True)
@@ -145,11 +155,10 @@ def _block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if sandwich:
         h = cm.rms_norm(h, p["ln1_post"], cfg.norm_eps, plus_one=True)
     x = x + h
-    h = cm.mlp_apply(p["mlp"], cm.rms_norm(x, p["ln2"], cfg.norm_eps,
-                                           plus_one=True), cfg.mlp_type)
+    h, aux = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg)
     if sandwich:
         h = cm.rms_norm(h, p["ln2_post"], cfg.norm_eps, plus_one=True)
-    return x + h, 0.0
+    return x + h, aux
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -168,32 +177,37 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _group(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
-    """One group: its sub-layers (per-layer trees) in order."""
+           positions: torch.Tensor):
+    """One group: its sub-layers (per-layer trees) in order; returns (x, the
+    sum of their aux losses)."""
+    aux = 0.0
     for s, lp in enumerate(layers):
-        x, _ = _block_apply(lp, x, positions, cfg, sublayer_window(cfg, s))
-    return x
+        x, a = _block_apply(lp, x, positions, cfg, sublayer_window(cfg, s))
+        aux = aux + a
+    return x, aux
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    patches: Optional[torch.Tensor] = None):
-    """tokens (B, S) [+ patches (B, P, F)] -> (final hidden (B, T, D), aux
-    0.0; aux is the MoE load-balancing loss, which no ported family has).
-    Each group sub-layer's stacked leaves are unbound once (see
-    ``hybrid.forward_hidden``)."""
+    """tokens (B, S) [+ patches (B, P, F)] -> (final hidden (B, T, D), aux):
+    aux is the MoE load-balancing loss summed over the layers (an fp32
+    scalar), 0.0 for a family without experts.  Each group sub-layer's
+    stacked leaves are unbound once (see ``hybrid.forward_hidden``)."""
     x = embed_inputs(params, cfg, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     ng = n_groups(cfg)
     stacks = [cm.unstack(stack, ng) for stack in params["groups"]]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for i in range(ng):
         layers = [stack[i] for stack in stacks]
         if remat:
-            x = checkpoint(_group, layers, cfg, x, positions, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(_group, layers, cfg, x, positions, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = _group(layers, cfg, x, positions)
-    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True), 0.0
+            x, a = _group(layers, cfg, x, positions)
+        aux = aux + a
+    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True), aux
 
 
 def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -279,8 +293,7 @@ def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
         attn_out = cm.rms_norm(attn_out, p["ln1_post"], cfg.norm_eps,
                                plus_one=True)
     x = x + attn_out
-    mlp_out = cm.mlp_apply(p["mlp"], cm.rms_norm(x, p["ln2"], cfg.norm_eps,
-                                                 plus_one=True), cfg.mlp_type)
+    mlp_out, _ = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg)
     if sandwich:
         mlp_out = cm.rms_norm(mlp_out, p["ln2_post"], cfg.norm_eps,
                               plus_one=True)

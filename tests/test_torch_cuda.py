@@ -1144,3 +1144,49 @@ def test_plan_graph_is_the_same_on_the_card_and_the_cpu(card):
                                              str(graphs["cpu"]))
     assert [n.op for n in graphs["cuda"] if n.kind == "kernel"] == \
         ["kernel:stacked_matmul"] * 2
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: the attention kernel at D = 128 inside the model
+# ---------------------------------------------------------------------------
+
+
+def test_moe_forward_with_the_kernel_matches_the_plain_attention(card, monkeypatch):
+    """mixtral's forward at a small width (2 layers, d_model 512, 4 query
+    heads of 128 over 2 KV heads, 4 experts, window 64; T 200, so the
+    window cuts), bf16: one ``flash_attention`` launch a layer, all on
+    ``wgmma`` at D = 128, and the logits within 2·E of the same forward
+    with the plain attention, E = rms(plain bf16 forward − its float32
+    twin).  Every token goes to every expert (top-4 of 4, a dropless
+    capacity), so the logits are a continuous function of the attention's
+    output: under top-2 a rounding difference flips near-ties between
+    experts, and such a jump is as large as E itself (chip_smoke.py holds
+    the top-2 forward at its published width)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import common as cm
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2, d_model=512,
+                              n_heads=4, n_kv_heads=2, d_ff=1024, vocab_size=1000,
+                              n_experts=4, top_k=4, capacity_factor=4.0, attn_window=64)
+    model = build_model(cfg)
+    g = torch.Generator(device=card).manual_seed(21)
+    with torch.inference_mode():
+        params = model.init(g, card)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=g, device=card)
+        before = dict(fk.flash_attention.route_launches)
+        got, aux = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        diff = {r: n - before[r] for r, n in fk.flash_attention.route_launches.items()}
+        assert diff == {r: 2 * (r == "wgmma") for r in diff}
+        monkeypatch.setattr(cm, "flash_attention",
+                            lambda q, k, v, **kw: attention_ref(q, k, v, **kw))
+        plain, plain_aux = model.forward(params, tokens)
+        twin = build_model(dataclasses.replace(cfg, dtype="float32"))
+        exact, _ = twin.forward(pytree.tree_map(lambda t: t.float(), params), tokens)
+    rms = lambda a, b: float((a.double() - b.double()).pow(2).mean().sqrt())  # noqa: E731
+    own = rms(plain, exact)
+    assert bool(torch.isfinite(got).all()) and own > 0
+    assert rms(got, plain) <= 2 * own, (rms(got, plain), own)
+    assert abs(float(aux) - float(plain_aux)) <= 1e-2 * float(plain_aux)

@@ -22,15 +22,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import all_arch_ids as jax_all_arch_ids  # noqa: E402
 from repro.configs import get_smoke_config as jax_get_smoke_config  # noqa: E402
 from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import all_arch_ids, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
@@ -204,21 +204,24 @@ def test_gemma2_tree_is_groups_of_stacks():
     assert shapes == jshapes
 
 
-def test_unported_families_raise():
-    for arch in ("mixtral-8x7b",):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
-        cfg = ModelConfig(**dataclasses.asdict(jax_get_smoke_config(arch)))
-        with pytest.raises(KeyError, match="ROADMAP"):
-            build_model(cfg)
-    moe = ModelConfig(**dataclasses.asdict(jax_get_smoke_config("mixtral-8x7b")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator(), moe, "cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        train_mod.main(["--arch", "grok-1-314b", "--smoke", "--device", "cpu"])
+def test_every_reference_arch_is_ported():
+    """Every architecture id of the reference: ``get_config`` and
+    ``get_smoke_config`` equal the reference's, and ``build_model`` builds
+    both on the reference's family module (the MoE family included)."""
+    assert all_arch_ids() == jax_all_arch_ids()
+    for arch in all_arch_ids():
+        for get, jget in ((get_config, jax_get_config),
+                          (get_smoke_config, jax_get_smoke_config)):
+            cfg, ref = get(arch), jget(arch)
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(ref), arch
+            model = build_model(cfg)
+            assert model.cfg == cfg, arch
+            assert (model.module.__name__.rsplit(".", 1)[1]
+                    == jax_build_model(ref).module.__name__.rsplit(".", 1)[1]), arch
 
 
-@pytest.mark.parametrize("arch", ("gemma2-2b", "mamba2-370m", "llava-next-mistral-7b"))
+@pytest.mark.parametrize("arch", ("gemma2-2b", "mamba2-370m", "llava-next-mistral-7b",
+                                  "mixtral-8x7b", "grok-1-314b"))
 def test_train_main_runs_on_cpu(arch, tmp_path, capsys):
     state = train_mod.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
                             "--batch", "2", "--seq", "32", "--log-every", "1",

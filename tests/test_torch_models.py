@@ -87,8 +87,10 @@ def test_configs_match_reference():
     assert (cfg.hd, cfg.ssm_heads, cfg.ssm_dinner) == (80, 80, 5120)
     assert cfg.param_count() == jax_get_config(ARCH).param_count()
     assert cfg.activation_dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+    for get, jget in ((get_config, jax_get_config),
+                      (get_smoke_config, jax_get_smoke_config)):
+        assert dataclasses.asdict(get("mixtral-8x7b")) == \
+            dataclasses.asdict(jget("mixtral-8x7b"))
 
 
 def test_norms_are_redrawn(models):
