@@ -364,6 +364,25 @@ raises and the script exits non-zero):
     profiled, and ``serve.generate`` with 4 requests of 256 + 64 tokens.
     The kernels line adds the phase's launches (``moe``) and the new
     shapes as ``cases``.
+19. training over a device mesh: a one-rank NCCL group and a 1 x 1
+    ``("data", "model")`` mesh; zamba2-2.7b at its full width and phase
+    15's shape (B 2 x T 4,096) from ``--seed``: the unmeshed
+    ``loss_and_grads`` (its gradients kept on the host), then the meshed
+    one (parameters placed by ``param_shardings``, the batch by the
+    pipeline's mesh) with exactly phase 15's attention and SSD launches,
+    all ``wgmma`` / ``mma``, on local shards: the loss within phase 15's
+    2·E, the gradients' cosine and norm ratio within phase 15's limits;
+    one profiled call each, meshed and unmeshed (device time by group);
+    three meshed AdamW steps timed beside phase 15's and beside two
+    unmeshed steps on the same state's shards, with the peak, the host
+    thread's time a step, and the collectives and redistributions of a
+    fourth (``CommDebugMode``); ``compressed_psum`` on the NCCL group (5 trials on
+    a (4, 64) tensor within the reference test's bounds, one call timed at
+    64 MB); ``torchrun --nproc_per_node 1 -m repro_torch.launch.train
+    --smoke --mesh data=1,model=1`` through a crash and a resume, whose
+    losses equal phase 15's unmeshed driver's.  With four cards, four
+    NCCL ranks take yi-9b at its published width (4 layers) on a 2 x 2
+    mesh, the loss within 1e-2 of one card's.
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -1915,7 +1934,8 @@ KERNEL_GROUPS = (("flash_attention", ("attn_tile_kernel", "attn_rows_kernel",
                  ("cuBLAS GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")))
 
 
-def device_profile(torch, fn, what: str, tag: str = "[8]", ranges=None):
+def device_profile(torch, fn, what: str, tag: str = "[8]", ranges=None,
+                   host_ops: bool = True):
     """Runs ``fn`` once under ``torch.profiler`` and prints the device time
     of its kernels by group (the port's kernels, cuBLAS, the rest of the
     torch ops), the top kernels, and the device's busy share of the
@@ -1923,7 +1943,9 @@ def device_profile(torch, fn, what: str, tag: str = "[8]", ranges=None):
     (module, attribute)}: each function is wrapped in a ``record_function``
     range of that name for the run (the package has no ranges), and the
     summary's ``ranges`` holds the device time of the kernels launched
-    under each.  A trace without device time prints 'not measured'."""
+    under each.  ``host_ops=False`` traces the device alone (no range
+    spans): a trace of some 40,000 host ops takes a minute to process.  A
+    trace without device time prints 'not measured'."""
     import importlib
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1940,7 +1962,8 @@ def device_profile(torch, fn, what: str, tag: str = "[8]", ranges=None):
         for name, (mod, attr) in ranges.items():
             obj = importlib.import_module(mod)
             stack.enter_context(patched(obj, attr, ranged(name, getattr(obj, attr))))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     if host_ops else [ProfilerActivity.CUDA]) as prof:
             # a first kernel and a sync, so the trace is live before the window
             # (kernels launched right after the profiler starts can go unseen)
             torch.ones(1, device="cuda").add_(1)
@@ -4830,12 +4853,18 @@ def phase_analysis(torch, seed, smi, fit_plans, km, A, B, R, ridge):
 
 def grad_agreement(torch, got, want):
     """(cosine, ‖got‖ / ‖want‖) of two gradient trees flattened, summed in
-    float64 over one layer slice at a time (no whole-leaf fp32 copy)."""
-    from torch.utils import _pytree as pytree
+    float64 over one layer slice at a time (no whole-leaf fp32 copy); a
+    slice of ``want`` is moved to ``got``'s device (a tree kept on the host
+    crosses one slice at a time).  The leaves are matched by path (a
+    placed tree's dicts need not keep the unplaced tree's key order)."""
+    from repro_torch.distributed.sharding import tree_paths
+    gp, gl, _ = tree_paths(got)
+    wp, wl, _ = tree_paths(want)
+    check(gp == wp, "the two gradient trees' paths differ")
     dot = ng = nw = 0.0
-    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+    for g, w in zip(gl, wl):
         for gs, ws in zip(g.split(1), w.split(1)) if g.ndim >= 3 else ((g, w),):
-            gf, wf = gs.reshape(-1).float(), ws.reshape(-1).float()
+            gf, wf = gs.reshape(-1).float(), ws.to(gs.device).reshape(-1).float()
             dot += float(torch.dot(gf, wf))
             ng += float(torch.dot(gf, gf))
             nw += float(torch.dot(wf, wf))
@@ -5106,7 +5135,8 @@ def phase_train(torch, seed, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[15] card: {smi}; train phase: {json.dumps(rec)}", flush=True)
     ck.raise_any()
-    return train
+    return train, {"loss_limit": rec["loss_limit"], "s_per_step": s_step,
+                   "peak_gb": peak, "driver": driver_summary(log.getvalue())}
 
 
 # ---------------------------------------------------------------------------
@@ -5518,8 +5548,8 @@ def causal_encoder(model, params, tokens, frames):
     from repro_torch.models import encdec
     real = encdec._mha
 
-    def mha(p, xq, xkv, cfg, causal, rope):
-        return real(p, xq, xkv, cfg, causal=causal or xq is xkv, rope=rope)
+    def mha(p, xq, xkv, cfg, env, causal, rope):
+        return real(p, xq, xkv, cfg, env, causal=causal or xq is xkv, rope=rope)
 
     with patched(encdec, "_mha", mha):
         return model.forward(params, tokens, frames)[0]
@@ -5819,8 +5849,8 @@ class drop_counter:
         from repro_torch.models import moe
         self.real, self.calls = moe.routing, []
 
-        def routing(router, x, cfg):
-            r = self.real(router, x, cfg)
+        def routing(*args, **kw):
+            r = self.real(*args, **kw)
             self.calls.append((int((~r.keep).sum()), r.keep.numel(), r.cap))
             return r
 
@@ -6059,6 +6089,427 @@ def phase_moe(torch, seed, smi):
     return total, attn_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training over a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                        # meshed AdamW steps timed (then one counted)
+PSUM_TRIALS, PSUM_BYTES = 5, 64 << 20  # compressed_psum: the reference test's trials; a timed call
+MESH_DRIVER_ARGV = DRIVER_ARGV + ["--mesh", "data=1,model=1"]
+MESH_DRIVER_TIMEOUT = 600             # s for the torchrun child
+MESH4_ARCH, MESH4_LAYERS, MESH4_BATCH = "yi-9b", 4, (4, 1024)
+MESH4_RANKS = 4                       # the 2 x 2 mesh: one NCCL rank per card
+MESH4_LOSS_TOL = 1e-2                 # tests/test_distributed.py's meshed-vs-one-device bound
+
+
+def driver_summary(log: str) -> dict:
+    """What ``launch.train`` printed: each logged step's loss, the
+    ``done:`` line's first and last loss averages and its failures."""
+    import re
+    done = [ln for ln in log.splitlines() if ln.startswith("done:")]
+    avg = re.search(r"loss (\S+) -> (\S+)", done[0]) if done else None
+    fails = re.search(r"failures=(\d+)", done[0]) if done else None
+    return {"steps": [[int(a), b] for a, b in re.findall(r"^step\s+(\d+) loss (\S+)",
+                                                          log, re.M)],
+            "losses": list(avg.groups()) if avg else None,
+            "failures": int(fails.group(1)) if fails else None}
+
+
+def out_proj_times(torch, env, cfg, b: int, t: int) -> dict:
+    """One bf16 output projection at ``cfg``'s w_down shape over ``env``'s
+    mesh (h (b, t, d_ff) and w placed as the MLP places them), forward and
+    backward: ``ShardEnv.out_proj`` (bf16 operands, fp32 partial sums)
+    against the same product of fp32 copies, each reduced to ``act_btd``'s
+    layout in fp32 before the cast; ms of each and their outputs' max gap."""
+    from repro_torch.core import placement as pl
+    from repro_torch.distributed.sharding import Spec
+    mesh = env.mesh
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    h = pl.place(torch.randn(b, t, cfg.d_ff, generator=gen, device="cuda").bfloat16(),
+                 mesh, pl.spec_placements(mesh, Spec("data", None, "model")))
+    w = pl.place((torch.randn(cfg.d_ff, cfg.d_model, generator=gen, device="cuda")
+                  / cfg.d_ff ** 0.5).bfloat16(),
+                 mesh, pl.spec_placements(mesh, Spec("model", "data")))
+    h.requires_grad_()
+    w.requires_grad_()
+    ways = {"out_proj": lambda: env.out_proj(h, w),
+            "fp32 copies": lambda: env.act_btd(env.linear(h.float(), w.float())).to(h.dtype)}
+
+    def step(fn):
+        y = fn()
+        torch.autograd.grad(y, (h, w), torch.ones_like(y))
+        return y
+
+    ys = {k: step(fn).full_tensor() for k, fn in ways.items()}
+    return {"ms": {k: timed(lambda fn=fn: step(fn)) for k, fn in ways.items()},
+            "max_gap": float((ys["out_proj"].float() - ys["fp32 copies"].float()).abs().max())}
+
+
+def mesh4_rank_main(rank: int, world: int, store: str, seed: int) -> dict:
+    """One of phase 19's four NCCL ranks: yi-9b at its published width, cut
+    to MESH4_LAYERS layers, on a 2 x 2 mesh.  Rank 0 also takes the loss and
+    gradients on its card alone and the float32 twin's loss (phase 15's E);
+    the meshed gradients are gathered whole on every rank and rank 0 holds
+    them to its own.  Every rank then times one output projection
+    (``out_proj_times``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.data import pipeline_for_model
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.models import common as cm
+    from repro_torch.models.model import build_model
+    from repro_torch.train import loss_and_grads
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
+        cfg = dataclasses.replace(get_config(MESH4_ARCH), n_layers=MESH4_LAYERS)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+        with torch.no_grad():
+            params = model.init(gen, "cuda")
+        b, t = MESH4_BATCH
+        batch = pipeline_for_model(cfg, b, t, seed=seed, device="cuda").batch_at(0)
+        single = twin = grads_1 = None
+        if rank == 0:
+            loss_1, grads_1 = loss_and_grads(model, params, batch)
+            single = float(loss_1)
+            with torch.no_grad(), plain_kernels():
+                params32 = pytree.tree_map(lambda p: p.float(), params)
+                twin = float(build_model(dataclasses.replace(cfg, dtype="float32")).loss(
+                    params32, batch.tokens, batch.labels))
+                del params32
+        placed = shlib.distribute(params, shlib.param_shardings(params, mesh))
+        del params
+        dbatch = pipeline_for_model(cfg, b, t, mesh, ("data",), seed=seed,
+                                    device="cuda").batch_at(0)
+        env = cm.ShardEnv(mesh=mesh, dp=("data",), tp="model")
+        loss_and_grads(model, placed, dbatch, env)          # warm
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, placed, dbatch, env)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        whole = pytree.tree_map(lambda g: g.full_tensor(), grads)   # every rank gathers
+        del grads
+        cos = ratio = None
+        if rank == 0:
+            cos, ratio = grad_agreement(torch, whole, grads_1)
+        del whole, grads_1, placed
+        torch.cuda.empty_cache()
+        return {"rank": rank, "loss": float(loss), "single": single, "f32_twin": twin,
+                "grad_cos": cos, "grad_norm_ratio": ratio, "step_s": step_s,
+                "launches": launches, "peak_gb": peak,
+                "out_proj": out_proj_times(torch, env, cfg, b, t)}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh4_branch(torch, seed, ck, rec) -> None:
+    """Phase 19's 2 x 2 mesh on four cards (one NCCL rank each), where the
+    machine has them: the meshed loss within phase 15's rule of 2 x E (E the
+    one-card loss's gap to its float32 twin) and MESH4_LOSS_TOL of one
+    card's, the gathered gradients against one card's."""
+    cards = torch.cuda.device_count()
+    if cards < MESH4_RANKS:
+        rec["mesh4"] = f"not run: {cards} card(s), the 2 x 2 mesh needs {MESH4_RANKS}"
+        print(f"[19] the 2 x 2 mesh ({MESH4_ARCH} at {MESH4_LAYERS} layers) needs "
+              f"{MESH4_RANKS} cards, one NCCL rank each; this machine has {cards}: "
+              f"that branch did not run", flush=True)
+        return
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    store = os.path.join(build, f"phase19_store4_{os.getpid()}")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--mesh-rank", str(r), "--dist-store", store],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MESH4_RANKS)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+        if os.path.exists(store):
+            os.remove(store)
+    got = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        ck(p.returncode == 0, f"2 x 2 rank {r} exited {p.returncode}: {err[-2000:]}")
+        if p.returncode == 0:
+            got.append(json.loads(out.strip().splitlines()[-1]))
+    if len(got) == MESH4_RANKS:
+        one = got[0]
+        gap, limit = abs(one["loss"] - one["single"]), 2 * abs(one["single"] - one["f32_twin"])
+        ck(len({g["loss"] for g in got}) == 1, f"ranks' losses differ: {got}")
+        ck(gap <= limit, f"2 x 2 loss {one['loss']} vs one card's {one['single']}: gap "
+                         f"{gap} beyond 2 x E = {limit}")
+        ck(gap <= MESH4_LOSS_TOL, f"2 x 2 loss {one['loss']} vs one card's {one['single']}")
+        ck(one["grad_cos"] >= GRAD_COS, f"2 x 2 gradients' cosine {one['grad_cos']}")
+        ck(abs(one["grad_norm_ratio"] - 1) <= GRAD_NORM_RATIO,
+           f"2 x 2 gradient norm ratio {one['grad_norm_ratio']}")
+        rec["mesh4"] = got
+        print(f"[19] 2 x 2 mesh, {MESH4_ARCH} at {MESH4_LAYERS} layers, B {MESH4_BATCH[0]} "
+              f"x T {MESH4_BATCH[1]}: loss {one['loss']:.6f} against one card's "
+              f"{one['single']:.6f} (gap {gap:.3e}, limits 2 x E = {limit:.3e} and "
+              f"{MESH4_LOSS_TOL}); gradients against one card's: cosine "
+              f"{one['grad_cos']:.9f}, norm ratio {one['grad_norm_ratio']:.9f}; loss and "
+              f"gradients {[round(g['step_s'], 4) for g in got]} s by rank, peak "
+              f"{[round(g['peak_gb'], 2) for g in got]} GB; one bf16 output projection "
+              f"(B x T x d_ff into d_model, forward and backward) by rank: "
+              f"{[g['out_proj'] for g in got]}", flush=True)
+
+
+def phase_mesh(torch, seed, smi, train_ref):
+    """Phase 19: zamba2-2.7b's training step over a 1 x 1 mesh on a
+    one-rank NCCL group at phase 15's shape, against the unmeshed step;
+    returns the kernels' launches by route over the phase's steps."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils import _pytree as pytree
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import placement as pl
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.data import pipeline_for_model
+    from repro_torch.distributed import compressed_psum
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.models import common as cm
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import TrainState, loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    ck = Checks("[19]")
+    rec = {"card": smi, "at_s": {}}
+
+    def mark(what):             # the phase's clock at the start of each part
+        rec["at_s"][what] = round(time.perf_counter() - t_phase, 3)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    store = os.path.join(build, f"phase19_store_{os.getpid()}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    with torch.no_grad():
+        params = model.init(gen, "cuda")
+        redraw_norms(params, gen)
+    per_step = {"flash_attention": 2 * ATTN_PER_FORWARD,
+                "flash_attention/wgmma": 2 * ATTN_PER_FORWARD,
+                "flash_attention/tile": 0, "flash_attention/rows": 0,
+                "ssd_chunk": 2 * SSD_PER_FORWARD, "ssd_chunk/mma": 2 * SSD_PER_FORWARD,
+                "ssd_chunk/simt": 0}
+    mesh_launches = dict.fromkeys(per_step, 0)
+
+    def counted(what):
+        got = read_counts()
+        expect_counts(got, per_step, what, "[19]")
+        for key in mesh_launches:
+            mesh_launches[key] += got[key]
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        env = cm.ShardEnv(mesh=mesh, dp=("data",), tp="model")
+        batch = pipeline_for_model(cfg, LM_BATCH, LM_SEQ, seed=seed, device="cuda").batch_at(0)
+        pipe_m = pipeline_for_model(cfg, LM_BATCH, LM_SEQ, mesh, ("data",), seed=seed,
+                                    device="cuda")
+
+        # 1. the unmeshed loss and gradients, profiled (the gradients to the host)
+        mark("unmeshed")
+        out = {}
+        rec["profiles"] = {"unmeshed": device_profile(
+            torch, lambda: out.update(u=loss_and_grads(model, params, batch)),
+            "unmeshed loss and gradients", "[19]", host_ops=False)}
+        loss_u, grads_u = out.pop("u")
+        grads_u = pytree.tree_map(lambda g: g.to("cpu"), grads_u)
+        loss_u = float(loss_u)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. the meshed loss and gradients from the same parameters (the
+        # first meshed call, which fills DTensor's caches), then profiled
+        mark("meshed")
+        placed = shlib.distribute(params, shlib.param_shardings(params, mesh))
+        del params
+        dbatch = pipe_m.batch_at(0)
+        ck(pl.is_dtensor(dbatch.tokens) and torch.equal(dbatch.tokens.to_local(),
+                                                          batch.tokens),
+           "the meshed pipeline's batch 0 is not the unmeshed one's tokens, placed")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_m, grads_m = loss_and_grads(model, placed, dbatch, env)
+        torch.cuda.synchronize()
+        rec["meshed_first_s"] = time.perf_counter() - t0
+        counted("meshed loss and gradients")
+        ck(all(pl.is_dtensor(g) and g.placements == p.placements for g, p in
+               zip(pytree.tree_leaves(grads_m), pytree.tree_leaves(placed))),
+           "a meshed gradient is not placed as its parameter")
+        loss_m = float(loss_m)
+        mark("agreement")
+        cos, ratio = grad_agreement(torch, pytree.tree_map(pl.local, grads_m), grads_u)
+        del grads_m, grads_u
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["profiles"]["meshed"] = device_profile(
+            torch, lambda: loss_and_grads(model, placed, dbatch, env),
+            "meshed loss and gradients", "[19]", host_ops=False)
+        limit = train_ref["loss_limit"]
+        rec.update(loss_unmeshed=loss_u, loss_meshed=loss_m, loss_gap=abs(loss_m - loss_u),
+                   loss_limit=limit, grad_cos=cos, grad_norm_ratio=ratio)
+        ck(abs(loss_m - loss_u) <= limit, f"meshed loss {loss_m} vs unmeshed {loss_u}: "
+                                          f"beyond phase 15's 2 x E = {limit}")
+        ck(cos >= GRAD_COS, f"meshed gradients' cosine {cos} < {GRAD_COS}")
+        ck(abs(ratio - 1) <= GRAD_NORM_RATIO, f"meshed gradient norm ratio {ratio}")
+        windows = [rec["profiles"][k]["wall_ms"] / 1e3 for k in ("meshed", "unmeshed")]
+        print(f"[19] {cfg.name} at B {LM_BATCH} x T {LM_SEQ} on a 1 x 1 mesh: loss meshed "
+              f"{loss_m:.6f}, unmeshed {loss_u:.6f} (gap {abs(loss_m - loss_u):.3e}, limit "
+              f"phase 15's 2 x E = {limit:.3e}); gradients: cosine {cos:.9f} (1 - cos = "
+              f"{1 - cos:.3e}), norm ratio {ratio:.9f}; loss and gradients "
+              f"{windows[0]:.3f} s meshed against {windows[1]:.3f} s unmeshed (profiled "
+              f"windows; the first meshed call {rec['meshed_first_s']:.3f} s)", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. meshed AdamW steps, timed
+        mark("steps")
+        opt = make_optimizer("adamw", peak_lr=TRAIN_LR, warmup=1, total=TRAIN_STEPS)
+        state = TrainState(params=placed, opt_state=opt.init(placed))
+        del placed
+        step_fn = make_train_step(model, opt, env)
+        times, hosts, losses = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(MESH_STEPS):
+            b = pipe_m.batch_at(i)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0, h0 = time.perf_counter(), time.thread_time()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            hosts.append(time.thread_time() - h0)
+            counted(f"meshed train step {i}")
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ck(all(np.isfinite(losses)), f"meshed losses {losses}")
+        ck(int(pl.local(state.opt_state["count"])) == MESH_STEPS, "the step count")
+        s_step = statistics.median(times[1:])
+        rec.update(step_s=times, host_s=hosts, s_per_step=s_step, peak_gb=peak,
+                   losses=losses, unmeshed_s_per_step=train_ref["s_per_step"],
+                   unmeshed_peak_gb=train_ref["peak_gb"])
+        ck(peak <= TRAIN_PEAK_GB, f"meshed peak {peak:.2f} GB above {TRAIN_PEAK_GB} GB")
+
+        # 4. one more step, its collectives and redistributions counted
+        mark("counted step")
+        redist = {"n": 0}
+        plain_redistribute = DTensor.redistribute
+
+        def counting(self, *a, **kw):
+            redist["n"] += 1
+            return plain_redistribute(self, *a, **kw)
+
+        comm = CommDebugMode()
+        zero_counts()
+        with patched(DTensor, "redistribute", counting), comm:
+            state, m = step_fn(state, pipe_m.batch_at(MESH_STEPS))
+        torch.cuda.synchronize()
+        counted("the counted meshed step")
+        rec.update(collectives_per_step=comm.get_total_counts(),
+                   collectives_by_op={str(k): v for k, v in comm.get_comm_counts().items()},
+                   redistributions_per_step=redist["n"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[19] {MESH_STEPS} meshed AdamW steps: losses {[round(x, 4) for x in losses]}; "
+              f"{s_step:.3f} s/step (median of steps 2-{MESH_STEPS}; step 1 "
+              f"{times[0]:.3f} s) against phase 15's unmeshed {train_ref['s_per_step']:.3f} "
+              f"s/step in this run ({s_step / train_ref['s_per_step']:.3f}x); host thread "
+              f"{[round(x, 3) for x in hosts]} s a step; peak {peak:.2f} GB (phase 15 "
+              f"{train_ref['peak_gb']:.2f}); a step's collectives "
+              f"{rec['collectives_per_step']} {rec['collectives_by_op']}, explicit "
+              f"redistributions {redist['n']} (card: {smi})", flush=True)
+
+        # 5. compressed_psum over the NCCL group's one-rank axis: the sum is x
+        mark("compressed_psum")
+        x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 64))
+                             .astype(np.float32)).cuda()
+        errs = []
+        for trial in range(PSUM_TRIALS):
+            g = torch.Generator(device="cuda").manual_seed(trial)
+            errs.append((compressed_psum(x, mesh, "data", g) - x).cpu().numpy())
+        err, scale = np.stack(errs), float(x.abs().max())
+        ck(np.abs(err).max() < 0.1 * scale + 0.2, f"compressed_psum max error "
+                                                  f"{np.abs(err).max()}")
+        ck(abs(err.mean()) < 0.05 * scale, f"compressed_psum mean error {err.mean()}")
+        big = torch.randn(PSUM_BYTES // 4, generator=gen, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(PSUM_TRIALS)
+        ms = timed(lambda: compressed_psum(big, mesh, "data", g))
+        rec.update(psum_max_err=float(np.abs(err).max()), psum_mean_err=float(err.mean()),
+                   psum_scale=scale, psum_ms=ms, psum_gb_per_s=PSUM_BYTES / ms / 1e6)
+        del big
+        print(f"[19] compressed_psum on the one-rank NCCL axis, {PSUM_TRIALS} trials on "
+              f"(4, 64): max error {np.abs(err).max():.4f} (limit "
+              f"{0.1 * scale + 0.2:.4f}), mean {err.mean():.2e} (limit "
+              f"{0.05 * scale:.4f}); one call on 64 MB of fp32 {ms:.4f} ms, "
+              f"{PSUM_BYTES / ms / 1e6:.1f} GB/s of input", flush=True)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+    # 6. the entry point under torchrun: phase 15's driver, on a 1 x 1 mesh
+    mark("driver")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+           *MESH_DRIVER_ARGV, "--ckpt-dir", root]
+    env_vars = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env_vars,
+                          timeout=MESH_DRIVER_TIMEOUT)
+    rec["driver_s"] = time.perf_counter() - t0
+    summary = driver_summary(proc.stdout)
+    latest = ckpt.latest_step(root)
+    shutil.rmtree(root, ignore_errors=True)
+    ck(proc.returncode == 0, f"torchrun ... launch.train {' '.join(MESH_DRIVER_ARGV)} "
+                             f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    ck(latest == 24, f"the meshed driver's latest checkpoint is step {latest}, not 24")
+    ck(summary["failures"] == 1, f"the meshed driver's failures: {summary}")
+    ck(summary == train_ref["driver"], f"the meshed driver printed {summary}; the "
+                                       f"unmeshed one {train_ref['driver']}")
+    rec["driver"] = summary
+    print(f"[19] torchrun --nproc_per_node 1 -m repro_torch.launch.train "
+          f"{' '.join(MESH_DRIVER_ARGV)}: {summary} (phase 15 unmeshed: "
+          f"{train_ref['driver']}); latest checkpoint {latest}; {rec['driver_s']:.2f} s",
+          flush=True)
+
+    # 7. the 2 x 2 mesh on four cards
+    mark("four cards")
+    mesh4_branch(torch, seed, ck, rec)
+    rec["launches"] = {k: v for k, v in mesh_launches.items() if v}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[19] card: {smi}; mesh phase: {json.dumps(rec, default=str)}", flush=True)
+    ck.raise_any()
+    return mesh_launches
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6070,6 +6521,8 @@ def main(argv=None) -> int:
     parser.add_argument("--dist-rank", type=int,
                         help=argparse.SUPPRESS)   # phase 13's 2 x 2 ranks
     parser.add_argument("--dist-store", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-rank", type=int,
+                        help=argparse.SUPPRESS)   # phase 19's 2 x 2 ranks
     args = parser.parse_args(argv)
 
     import torch
@@ -6088,6 +6541,9 @@ def main(argv=None) -> int:
         return 0
     if args.dist_rank is not None:
         emit(dist_rank_main(args.dist_rank, DIST_RANKS, args.dist_store, args.seed))
+        return 0
+    if args.mesh_rank is not None:
+        emit(mesh4_rank_main(args.mesh_rank, MESH4_RANKS, args.dist_store, args.seed))
         return 0
 
     name, smi = phase_card(torch)
@@ -6149,7 +6605,7 @@ def main(argv=None) -> int:
     del A, B, R, km, ridge, fit_plans
     gc.collect()
     torch.cuda.empty_cache()
-    trained = phase_train(torch, args.seed, smi)
+    trained, train_ref = phase_train(torch, args.seed, smi)
     gc.collect()
     torch.cuda.empty_cache()
     families, attn_rows, ssd_row = phase_families(torch, args.seed, smi)
@@ -6161,12 +6617,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe, moe_rows = phase_moe(torch, args.seed, smi)
     attn_rows += moe_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = phase_mesh(torch, args.seed, smi, train_ref)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
             for path, counts in (("train", trained), ("families", families),
-                                 ("encdec", encdec), ("moe", moe)):
+                                 ("encdec", encdec), ("moe", moe), ("mesh", meshed)):
                 line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
                 line["launches"] += counts.get(f"{kind}/{route}", 0)
                 if "launches_by_route" in line:

@@ -20,13 +20,19 @@ writes one (raw 2-byte records, ``<V2`` in the file, ``bfloat16`` in the
 manifest), so its own ``restore`` refuses it as the reference's does.
 NumPy arrays and Python scalars are written as they are.  A DTensor leaf
 (placed on a mesh) is gathered and written whole, by rank 0, as the
-reference writes a sharded leaf; ``restore`` gives a plain tensor.  ``restore``
-places every leaf on ``device`` (default ``"cuda"``) as a tensor, 64-bit
-values narrowed as the reference's ``jnp.asarray`` narrows them.
+reference writes a sharded leaf.  ``restore`` places every leaf on
+``device`` (default ``"cuda"``) as a tensor, 64-bit values narrowed as the
+reference's ``jnp.asarray`` narrows them; with ``shardings`` (the
+reference's elastic path) a leaf with a ``distributed.sharding.Sharding``
+lands on that mesh as a DTensor, whatever mesh it was saved from.
 
 ``AsyncCheckpointer`` copies the tree to host memory synchronously (a
 blocking device-to-host copy: the writer thread must never read a buffer a
 later kernel may still overwrite) and writes it in a background thread.
+A tree placed on a mesh is gathered on the calling thread of every rank
+(a collective), only rank 0 starts a writer, and ``wait()`` ends at a
+barrier of all ranks, so no rank reads a checkpoint rank 0 has not
+committed.
 """
 
 from __future__ import annotations
@@ -220,10 +226,43 @@ def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def restore(root: str, step: int, like: Params, device="cuda",
-            allow_cast: bool = False) -> Params:
-    """Restore into the structure of ``like`` (tensors, arrays or ``meta``
-    tensors as protos), every leaf a tensor on ``device``.
+def _load_leaf(path: str, p: str, proto, allow_cast: bool, dev) -> torch.Tensor:
+    """The leaf file ``path`` (tree path ``p``) checked against its proto
+    and placed on ``dev`` (see :func:`restore`)."""
+    arr = np.load(path)
+    if list(arr.shape) != list(proto.shape):
+        raise ValueError(f"shape mismatch for {p}: {arr.shape} vs "
+                         f"{tuple(proto.shape)}")
+    want = _dtype_name(proto)
+    if str(arr.dtype) != want:
+        if not allow_cast:
+            raise ValueError(
+                f"dtype mismatch for {p}: checkpoint has {arr.dtype}, "
+                f"restore target wants {want} (pass allow_cast=True to "
+                f"cast explicitly)")
+        if want == _BF16:
+            if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+                # the reference's bfloat16 records: reinterpret them
+                t = torch.from_numpy(arr.view(np.int16).copy()) \
+                    .view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.ascontiguousarray(arr)) \
+                    .to(torch.bfloat16)
+            return t.to(dev)
+        arr = arr.astype(np.dtype(want))
+    return _to_device(arr, dev)
+
+
+def restore(root: str, step: int, like: Params, shardings: Optional[Params] = None,
+            device="cuda", allow_cast: bool = False) -> Params:
+    """Restore into the structure of ``like`` (tensors, arrays, DTensors or
+    ``meta`` tensors as protos), every leaf a tensor on ``device``.
+
+    ``shardings``, a tree of ``like``'s structure with a
+    ``distributed.sharding.Sharding`` or ``None`` per leaf, places each
+    leaf that has one on its mesh (on the mesh's device): every rank of it
+    reads the whole leaf and keeps its own shard, so the mesh the
+    checkpoint was saved from does not matter (elastic resharding).
 
     A dtype mismatch between a saved leaf and its ``like`` proto raises,
     as shape mismatches do: a silent cast would turn a float64-trained
@@ -238,34 +277,22 @@ def restore(root: str, step: int, like: Params, device="cuda",
         manifest = json.load(f)
     paths, like_leaves, unflatten = _flatten_with_paths(like)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    if shardings is None:
+        shard_leaves = [None] * len(like_leaves)
+    else:
+        from repro_torch.distributed.sharding import spec_tree_paths
+        shard_leaves = spec_tree_paths(shardings)[1]
+        if len(shard_leaves) != len(like_leaves):
+            raise ValueError(f"{len(shard_leaves)} shardings for "
+                             f"{len(like_leaves)} leaves")
     out = []
-    for p, proto in zip(paths, like_leaves):
+    for p, proto, sh in zip(paths, like_leaves, shard_leaves):
         entry = by_path.get(p)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {p}")
-        arr = np.load(os.path.join(d, entry["file"]))
-        if list(arr.shape) != list(proto.shape):
-            raise ValueError(f"shape mismatch for {p}: {arr.shape} vs "
-                             f"{tuple(proto.shape)}")
-        want = _dtype_name(proto)
-        if str(arr.dtype) != want:
-            if not allow_cast:
-                raise ValueError(
-                    f"dtype mismatch for {p}: checkpoint has {arr.dtype}, "
-                    f"restore target wants {want} (pass allow_cast=True to "
-                    f"cast explicitly)")
-            if want == _BF16:
-                if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-                    # the reference's bfloat16 records: reinterpret them
-                    t = torch.from_numpy(arr.view(np.int16).copy()) \
-                        .view(torch.bfloat16)
-                else:
-                    t = torch.from_numpy(np.ascontiguousarray(arr)) \
-                        .to(torch.bfloat16)
-                out.append(t.to(dev))
-                continue
-            arr = arr.astype(np.dtype(want))
-        out.append(_to_device(arr, dev))
+        t = _load_leaf(os.path.join(d, entry["file"]), p, proto, allow_cast,
+                       dev if sh is None else resolve_device(sh.mesh.device_type))
+        out.append(t if sh is None else sh.place(t))
     return unflatten(out)
 
 
@@ -293,6 +320,7 @@ class AsyncCheckpointer:
         self._lock = threading.Lock()
         self._error: Optional[BaseException] = None
         self._last_committed: Optional[int] = None
+        self._placed = False     # the last save's tree was on a mesh
 
     @property
     def last_committed(self) -> Optional[int]:
@@ -303,7 +331,13 @@ class AsyncCheckpointer:
              extra: Optional[Dict[str, Any]] = None) -> None:
         self.wait()                 # also re-raises a prior writer failure
         paths, leaves, unflatten = _flatten_with_paths(tree)
+        # a placed leaf is gathered here, on every rank's calling thread
         host_tree = unflatten([_host_leaf(v) for v in leaves])
+        self._placed = any(_pl.is_dtensor(v) for v in leaves)
+        if self._placed:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                return              # rank 0 alone writes; wait() meets it
 
         def work():
             try:
@@ -323,6 +357,10 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._placed:
+            import torch.distributed as dist
+            self._placed = False
+            dist.barrier()
         with self._lock:
             err, self._error = self._error, None
         if err is not None:

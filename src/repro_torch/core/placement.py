@@ -79,6 +79,23 @@ def placements(mesh, axes: Axes) -> tuple:
                  for n in mesh.mesh_dim_names)
 
 
+def spec_placements(mesh, spec: Sequence) -> tuple:
+    """The DTensor placements, one per mesh dim, of a tensor laid out by
+    ``spec`` (``distributed.sharding.Spec``: per tensor dim ``None``, a mesh
+    axis name or a tuple of them): a mesh dim named at tensor dim ``d`` is
+    ``Shard(d)``, every other mesh dim ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {}
+    for d, names in enumerate(spec):
+        for name in ((names,) if isinstance(names, str) else names or ()):
+            axis_size(mesh, name)
+            if name in dims:
+                raise ValueError(f"mesh axis {name!r} shards two dims of {spec}")
+            dims[name] = d
+    return tuple(Shard(dims[n]) if n in dims else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
 def axes_of(t) -> Tuple[object, Axes]:
     """The mesh of a placed block tensor and the mesh axes of its grid dims
     (the inverse of :func:`placements`)."""
@@ -120,12 +137,14 @@ def shard_slices(mesh, places: Sequence, shape: Sequence[int]) -> tuple:
     coord = mesh.get_coordinate()
     if coord is None:
         raise RuntimeError("this rank is not in the mesh")
-    out = [slice(None)] * len(shape)
+    out = [slice(0, int(n)) for n in shape]
     for i, p in enumerate(places):
         if p.is_shard():
-            if out[p.dim] != slice(None):
-                raise NotImplementedError("a dim sharded over two mesh dims")
-            out[p.dim] = _chunk(int(shape[p.dim]), mesh.size(i), coord[i])
+            # a dim sharded over several mesh dims is cut by each in mesh
+            # order, each cutting the piece the one before left
+            cur = out[p.dim]
+            sub = _chunk(cur.stop - cur.start, mesh.size(i), coord[i])
+            out[p.dim] = slice(cur.start + sub.start, cur.start + sub.stop)
     return tuple(out)
 
 

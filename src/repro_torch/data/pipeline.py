@@ -9,6 +9,11 @@ random walk of steps in [-3, 3] from a uniform start, modulo the vocabulary,
 with labels rolled by one.  torch cannot replay ``jax.random``, so the
 tokens follow the law, not the reference's bits.  ``as_dsarray`` exposes a
 batch as a ds-array on its device, so the algorithm layer composes.
+
+With a ``mesh`` every rank draws the same whole batch and keeps its shard:
+each leaf is a DTensor whose leading dim is split over ``dp_axes``
+(``distributed.sharding.batch_specs``), the tokens those of the batch
+without a mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import placement as _pl
 from repro_torch.core.dsarray import DsArray, from_array, resolve_device
 from repro_torch.models.config import ModelConfig
 
@@ -72,14 +78,28 @@ def _gen_batch(gen: torch.Generator, cfg: PipelineConfig,
 class SyntheticPipeline:
     """Stateless-per-step pipeline; ``state`` is just the step cursor."""
 
-    def __init__(self, cfg: PipelineConfig, device="cuda"):
+    def __init__(self, cfg: PipelineConfig, mesh=None,
+                 dp_axes: Tuple[str, ...] = ("data",), device=None):
+        """``device`` defaults to the mesh's device type, else ``"cuda"``."""
         self.cfg = cfg
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes)
+        if device is None:
+            device = mesh.device_type if mesh is not None else "cuda"
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> Batch:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(_step_seed(self.cfg.seed, step))
-        return _gen_batch(gen, self.cfg, self.device)
+        batch = _gen_batch(gen, self.cfg, self.device)
+        if self.mesh is None:
+            return batch
+        from repro_torch.distributed.sharding import batch_specs
+        specs = batch_specs(batch, self.mesh, self.dp_axes)
+        return Batch(*(None if t is None else _pl.place(
+            t, self.mesh, _pl.spec_placements(self.mesh, getattr(specs, f)))
+            for f, t in (("tokens", batch.tokens), ("labels", batch.labels),
+                         ("patches", batch.patches))))
 
     def iterate(self, start_step: int = 0) -> Iterator[Tuple[int, Batch]]:
         step = start_step
@@ -89,7 +109,8 @@ class SyntheticPipeline:
 
 
 def pipeline_for_model(mcfg: ModelConfig, global_batch: int, seq_len: int,
-                       seed: int = 0, device="cuda") -> SyntheticPipeline:
+                       mesh=None, dp_axes: Tuple[str, ...] = ("data",),
+                       seed: int = 0, device=None) -> SyntheticPipeline:
     ft = mcfg.frontend
     f_tokens = mcfg.frontend_tokens
     if ft == "audio":
@@ -101,4 +122,4 @@ def pipeline_for_model(mcfg: ModelConfig, global_batch: int, seq_len: int,
                           seq_len=seq_len, vocab_size=mcfg.vocab_size,
                           frontend=ft, frontend_dim=mcfg.frontend_dim,
                           frontend_tokens=f_tokens)
-    return SyntheticPipeline(pcfg, device)
+    return SyntheticPipeline(pcfg, mesh, dp_axes, device)

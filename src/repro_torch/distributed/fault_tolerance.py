@@ -14,9 +14,12 @@ deterministic resume.
   crash; unknown exceptions default to *transient*.  The data pipeline
   needs no replay: batch ``i`` is a pure function of ``i``.
 
-The reference's ``state_shardings`` (the restore's placement on the current
-mesh) is ``device=`` here: every restored leaf lands there, cast to its
-``init_state()`` proto's dtype (a bf16 state restores bit for bit).
+A restored leaf lands on ``device``, or, with ``state_shardings`` (a tree
+of ``distributed.sharding.Sharding`` like the state's, the reference's
+argument), on its mesh as a DTensor, whatever mesh saved it; each is cast
+to its ``init_state()`` proto's dtype (a bf16 state restores bit for bit).
+Over a mesh every rank runs the loop (SPMD); the checkpointer gathers the
+state on every rank and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ def run_with_restarts(
     ckpt_every: int = 50,
     max_failures: int = 3,
     heartbeat: Optional[Heartbeat] = None,
+    state_shardings: Optional[Any] = None,
     device="cuda",
     on_metrics: Optional[Callable[[int, Dict[str, float]], None]] = None,
     backoff: float = 0.0,
@@ -87,8 +91,8 @@ def run_with_restarts(
         last = ckpt.latest_step(ckpt_root)
         if last is None:
             return init_state(), 0
-        state = ckpt.restore(ckpt_root, last, init_state(), device=device,
-                             allow_cast=True)
+        state = ckpt.restore(ckpt_root, last, init_state(), state_shardings,
+                             device=device, allow_cast=True)
         return state, last + 1
 
     state, step = restore_or_init()

@@ -98,98 +98,110 @@ def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
 
 
 def _mha(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig,
-         causal: bool, rope: bool) -> torch.Tensor:
+         env: cm.ShardEnv, causal: bool, rope: bool) -> torch.Tensor:
     """Attention of the queries of ``xq`` (B, Tq, D) over the keys and values
     of ``xkv`` (B, Tk, D): the products in the activation dtype, RoPE at
     positions 0.. on both sides when ``rope``."""
-    b, tq, _ = xq.shape
+    tq = xq.shape[1]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _heads(xq @ p["wq"], h, hd)
-    k = _heads(xkv @ p["wk"], hkv, hd)
-    v = _heads(xkv @ p["wv"], hkv, hd)
+    q = env.act_bhtd(env.split_heads(env.linear(xq, env.weight(p["wq"], 1)), h, hd))
+    k = env.act_bhtd(env.split_heads(env.linear(xkv, env.weight(p["wk"], 1)), hkv, hd))
+    v = env.act_bhtd(env.split_heads(env.linear(xkv, env.weight(p["wv"], 1)), hkv, hd))
+    q, k, v = env.kernel_bhtd(q, k, v)
     if rope:
         q = cm.apply_rope(q, torch.arange(tq, device=xq.device), cfg.rope_theta)
         k = cm.apply_rope(k, torch.arange(xkv.shape[1], device=xq.device),
                           cfg.rope_theta)
-    o = cm.attention(q, k, v, causal=causal)
-    return o.transpose(1, 2).reshape(b, tq, h * hd) @ p["wo"]
+    o = cm.attention(q, k, v, causal=causal, env=env)
+    return env.out_proj(env.merge_heads(o), env.weight(p["wo"], 0))
 
 
-def _enc_layer(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _enc_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               env: cm.ShardEnv) -> torch.Tensor:
     h = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _mha(p["attn"], h, h, cfg, causal=False, rope=True)
+    x = env.act_btd(x + _mha(p["attn"], h, h, cfg, env, causal=False, rope=True))
     h = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + cm.mlp_apply(p["mlp"], h, cfg.mlp_type)
+    return env.act_btd(x + cm.mlp_apply(p["mlp"], h, cfg.mlp_type, env))
 
 
 def _dec_layer(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, env: cm.ShardEnv) -> torch.Tensor:
     h = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + _mha(p["self_attn"], h, h, cfg, causal=True, rope=True)
+    x = env.act_btd(x + _mha(p["self_attn"], h, h, cfg, env, causal=True,
+                             rope=True))
     h = cm.rms_norm(x, p["ln_cross"], cfg.norm_eps)
-    x = x + _mha(p["cross_attn"], h, enc_out, cfg, causal=False, rope=False)
+    x = env.act_btd(x + _mha(p["cross_attn"], h, enc_out, cfg, env,
+                             causal=False, rope=False))
     h = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + cm.mlp_apply(p["mlp"], h, cfg.mlp_type)
+    return env.act_btd(x + cm.mlp_apply(p["mlp"], h, cfg.mlp_type, env))
 
 
 def _layers(layer_fn, stack: Params, n: int, cfg: ModelConfig, x: torch.Tensor,
             *extra) -> torch.Tensor:
-    """``layer_fn`` over the ``n`` layers of ``stack`` (each leaf unbound
-    once), each checkpointed under grad mode with ``cfg.remat``."""
+    """``layer_fn(layer, x, *extra)`` over the ``n`` layers of ``stack``
+    (each leaf unbound once), each checkpointed under grad mode with
+    ``cfg.remat``."""
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in cm.unstack(stack, n):
         if remat:
-            x = checkpoint(layer_fn, lp, x, *extra, cfg, use_reentrant=False,
+            x = checkpoint(layer_fn, lp, x, *extra, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = layer_fn(lp, x, *extra, cfg)
+            x = layer_fn(lp, x, *extra)
     return x
 
 
-def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """frames (B, T_enc, frontend_dim) -> encoder states (B, T_enc, D) in the
     activation dtype."""
-    x = frames.to(cfg.activation_dtype) @ params["frontend_proj"]
-    x = _layers(_enc_layer, params["enc_layers"], cfg.enc_layers, cfg, x)
+    x = env.act_btd(env.linear(frames.to(cfg.activation_dtype), params["frontend_proj"]))
+    x = _layers(_enc_layer, params["enc_layers"], cfg.enc_layers, cfg, x, cfg, env)
     return cm.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def decode_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  enc_out: torch.Tensor) -> torch.Tensor:
+                  enc_out: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD
+                  ) -> torch.Tensor:
     """tokens (B, S) over ``enc_out`` -> the decoder's final hidden states."""
-    x = params["embed"][tokens]
-    x = _layers(_dec_layer, params["dec_layers"], cfg.dec_layers, cfg, x, enc_out)
+    x = env.act_btd(cm.embed(params["embed"], tokens, env))
+    x = _layers(_dec_layer, params["dec_layers"], cfg.dec_layers, cfg, x, enc_out,
+                cfg, env)
     return cm.rms_norm(x, params["dec_norm"], cfg.norm_eps)
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   patches: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, float]:
+                   patches: Optional[torch.Tensor] = None,
+                   env: cm.ShardEnv = cm.NO_SHARD) -> Tuple[torch.Tensor, float]:
     """(the decoder's final hidden states, aux 0.0); ``patches`` are the
     encoder frames."""
     if patches is None:
         raise ValueError("encdec needs encoder frames (patches)")
-    return decode_hidden(params, cfg, tokens, encode(params, cfg, patches)), 0.0
+    return decode_hidden(params, cfg, tokens, encode(params, cfg, patches, env),
+                         env), 0.0
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x.float() @ params["lm_head"].float()
+def _logits(params: Params, x: torch.Tensor,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
+    return env.linear(x.float(), params["lm_head"].float())
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None,
+            env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, S), frames ``patches`` (B, T_enc, F) -> (logits (B, S, V)
     f32, aux)."""
-    x, aux = forward_hidden(params, cfg, tokens, patches)
-    return _logits(params, x), aux
+    x, aux = forward_hidden(params, cfg, tokens, patches, env)
+    return env.act_btv(_logits(params, x, env)), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, patches: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            labels: torch.Tensor, patches: Optional[torch.Tensor] = None,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """Next-token cross-entropy (+ z-loss) of the decoder over the frames."""
-    hidden, _ = forward_hidden(params, cfg, tokens, patches)
-    return cm.chunked_lm_loss(hidden, params["lm_head"], labels)
+    hidden, _ = forward_hidden(params, cfg, tokens, patches, env)
+    return cm.chunked_lm_loss(hidden, params["lm_head"], labels, env=env,
+                              vocab_parallel=env.vocab_parallel)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +227,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD):
     """One token for every sequence: tokens (B, 1) -> (logits (B, 1, V) f32,
     cache).  Writes the token's K and V into ``cache`` in place (the
     reference returns a new one) and returns it."""
@@ -223,22 +235,24 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     pos = cache["pos"]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     enc_out = cache["enc_out"]
-    x = params["embed"][tokens]
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    x = cm.embed(params["embed"], tokens, env)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for i, p in enumerate(cm.unstack(params["dec_layers"], cfg.dec_layers)):
         sa = p["self_attn"]
         hh = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
         q = cm.apply_rope(_heads(hh @ sa["wq"], h, hd), posv, cfg.rope_theta)
         kk = cm.apply_rope(_heads(hh @ sa["wk"], hkv, hd), posv, cfg.rope_theta)
         kc, vc = cache["k"][i], cache["v"][i]
-        kc[:, :, pos] = kk[:, :, 0]
-        vc[:, :, pos] = _heads(hh @ sa["wv"], hkv, hd)[:, :, 0]
-        o = cm.decode_attention(q, kc, vc, pos + 1)
+        cm.write(kc, (slice(None), slice(None), pos), kk[:, :, 0])
+        cm.write(vc, (slice(None), slice(None), pos), _heads(hh @ sa["wv"], hkv, hd)[:, :, 0])
+        o = cm.decode_attention(q, kc, vc, pos + 1, env=env)
         x = x + o.transpose(1, 2).reshape(b, 1, h * hd) @ sa["wo"]
         hh = cm.rms_norm(x, p["ln_cross"], cfg.norm_eps)
-        x = x + _mha(p["cross_attn"], hh, enc_out, cfg, causal=False, rope=False)
+        # the reference passes NO_SHARD here (no layout constraints); over a
+        # mesh the port needs the env to run the kernel on local shards
+        x = x + _mha(p["cross_attn"], hh, enc_out, cfg, env, causal=False, rope=False)
         hh = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + cm.mlp_apply(p["mlp"], hh, cfg.mlp_type)
+        x = x + cm.mlp_apply(p["mlp"], hh, cfg.mlp_type, env)
     cache["pos"] = pos + 1
     x = cm.rms_norm(x, params["dec_norm"], cfg.norm_eps)
     return _logits(params, x), cache

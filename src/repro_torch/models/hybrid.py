@@ -43,16 +43,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def _group(layers, shared: Params, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD
+           ) -> torch.Tensor:
     """One group: the Mamba layers ``layers`` (per-layer trees) and the
     shared block."""
     for lp in layers:
-        x, _ = ssm.mamba_apply(lp, x, cfg)
-    x, _ = tf._block_apply(shared, x, positions, cfg, cfg.attn_window)
+        x, _ = ssm.mamba_apply(lp, x, cfg, env)
+    x, _ = tf._block_apply(shared, x, positions, cfg, cfg.attn_window, env)
     return x
 
 
-def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
+def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, T) -> (final hidden states (B, T, D) in the activation
     dtype, aux 0.0).  Under grad mode with ``cfg.remat`` each group keeps
     only its input for the backward and runs again there (its kernels
@@ -60,8 +62,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
     layer leaves are unbound once, so the backward stacks each leaf's
     per-layer gradients once (indexing a layer per call would write a
     full-size gradient of the stack per layer)."""
-    x = params["embed"][tokens]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = env.act_btd(cm.embed(params["embed"], tokens, env))
+    positions = torch.arange(tokens.shape[1], device=x.device)
     layers = cm.unstack(params["layers"], cfg.n_layers)
     remat = cfg.remat and torch.is_grad_enabled()
     per = cfg.share_period
@@ -69,30 +71,33 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor):
         group = layers[g * per:(g + 1) * per]
         if remat:
             x = checkpoint(_group, group, params["shared"], cfg, x, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+                           env, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _group(group, params["shared"], cfg, x, positions)
+            x = _group(group, params["shared"], cfg, x, positions, env)
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x.float() @ params["lm_head"].float()
+def _logits(params: Params, x: torch.Tensor,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
+    return env.linear(x.float(), params["lm_head"].float())
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            patches=None):
+            patches=None, env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, T) -> (logits (B, T, V) f32, aux 0.0)."""
     del patches
-    x, aux = forward_hidden(params, cfg, tokens)
-    return _logits(params, x), aux
+    x, aux = forward_hidden(params, cfg, tokens, env)
+    return env.act_btv(_logits(params, x, env)), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, patches=None) -> torch.Tensor:
+            labels: torch.Tensor, patches=None,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """Next-token cross-entropy (+ z-loss), token mean, fp32 scalar."""
     del patches
-    hidden, _ = forward_hidden(params, cfg, tokens)
-    return cm.chunked_lm_loss(hidden, params["lm_head"], labels)
+    hidden, _ = forward_hidden(params, cfg, tokens, env)
+    return cm.chunked_lm_loss(hidden, params["lm_head"], labels, env=env,
+                              vocab_parallel=env.vocab_parallel)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
@@ -112,22 +117,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, 1) -> (logits (B, 1, V) f32, cache).  Updates ``cache`` in
     place (the reference returns a new one) and returns it."""
-    x = params["embed"][tokens]
+    x = cm.embed(params["embed"], tokens, env)
     pos = cache["pos"]
     for i in range(cfg.n_layers):
-        x, st = ssm.mamba_apply(cm.layer(params["layers"], i), x, cfg,
+        x, st = ssm.mamba_apply(cm.layer(params["layers"], i), x, cfg, env,
                                 state={"conv": cache["conv"][i], "h": cache["h"][i]},
                                 single_step=True)
-        cache["conv"][i] = st["conv"]
-        cache["h"][i] = st["h"]
+        cm.write(cache["conv"], (i,), st["conv"])
+        cm.write(cache["h"], (i,), st["h"])
         if (i + 1) % cfg.share_period == 0:
             app = i // cfg.share_period
             x, _, _ = tf.decode_block(params["shared"], x, cache["attn_k"][app],
                                       cache["attn_v"][app], pos, cfg,
-                                      cfg.attn_window)
+                                      cfg.attn_window, env)
     cache["pos"] = pos + 1
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x), cache

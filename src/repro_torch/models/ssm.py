@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import Spec
 from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.models import common as cm
 from repro_torch.models.config import ModelConfig
@@ -60,7 +61,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b, new_state
 
 
+def _batch_lead(env: cm.ShardEnv, batch: int, *ts):
+    """``ts`` with the leading dim over the batch axes and every other dim
+    whole (every dim whole when the batch axes do not divide ``batch``):
+    the layout the SSD takes, in which B·H and B·G shard alike."""
+    if env.mesh is None:
+        return ts
+    lead = env.batch_axes if batch % env._axis_size(env.batch_axes) == 0 else None
+    return tuple(env.constrain(t, Spec(lead, *([None] * (t.ndim - 1)))) for t in ts)
+
+
+def _ssd(env: cm.ShardEnv, batch: int, chunk: int, x, dt, a, b, c, h0=None):
+    """``ssd_scan`` on (B·H, ...) tensors; over a mesh on each rank's shard
+    of B·H, split along the batch (T is never split): B and C are per
+    (batch, group), so B·H and B·G shard alike only at batch boundaries."""
+    fn = lambda *t: ssd_scan(*t, chunk=chunk)  # noqa: E731
+    args = (x, dt, a, b, c) if h0 is None else (x, dt, a, b, c, h0)
+    return cm.kernel_call(fn, (0, 0), *_batch_lead(env, batch, *args))
+
+
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                env: cm.ShardEnv = cm.NO_SHARD,
                 state: Optional[Params] = None, single_step: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x (B,T,D) -> (y (B,T,D), new_state).  ``state`` carries
@@ -69,14 +90,20 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     dinner, s, g, h = cfg.ssm_dinner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_heads
     pdim = cfg.ssm_headdim
     res = x
-    proj = cm.rms_norm(x, p["norm"], cfg.norm_eps) @ p["in_proj"]
+    proj = env.linear(cm.rms_norm(x, p["norm"], cfg.norm_eps), env.weight(p["in_proj"], 1))
     z, xbc, dt = proj.split([dinner, dinner + 2 * g * s, h], dim=-1)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  state["conv"] if state is not None else None)
     xbc = F.silu(xbc)
     xs, bmat, cmat = xbc.split([dinner, g * s, g * s], dim=-1)
+    xs = env.act_btf(xs) if dinner == cfg.d_ff else xs
     dt = F.softplus(dt.float() + p["dt_bias"])             # (B,T,H)
     a = -torch.exp(p["a_log"])                              # (H,)
+    uneven = env.mesh is not None and h % env._axis_size(env.tp)
+    if uneven:                  # h heads cannot be cut from a tp-sharded dim
+        xs = cm.whole_dim(xs, 2)
+    if env.mesh is not None and g % env._axis_size(env.tp):
+        bmat, cmat = cm.whole_dim(bmat, 2), cm.whole_dim(cmat, 2)
     xh = xs.reshape(b, t, h, pdim)
 
     if single_step:
@@ -89,21 +116,26 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  * xh[:, 0].float()[:, :, None, :])
         y = torch.einsum("bhs,bhsp->bhp", cg, h_fin)[:, None].to(x.dtype)
     else:
-        # (B,T,H,P) -> ssd_scan's (B·H, T, P); B and C stay per group
+        # placed by batch before (B,T,H,P) -> ssd_scan's (B·H, T, P): a
+        # flatten may shard only its leading dim; B and C stay per group
+        xh, dt, bmat, cmat = _batch_lead(env, b, xh, dt, bmat, cmat)
         bg = lambda m: m.reshape(b, t, g, s).transpose(1, 2).reshape(b * g, t, s).float()  # noqa: E731
         h0 = state["h"].reshape(b * h, s, pdim) if state is not None else None
-        y, h_fin = ssd_scan(xh.float().transpose(1, 2).reshape(b * h, t, pdim),
-                            dt.transpose(1, 2).reshape(b * h, t), a.repeat(b),
-                            bg(bmat), bg(cmat), h0, chunk=cfg.ssm_chunk)
-        y = y.reshape(b, h, t, pdim).transpose(1, 2).to(x.dtype)
+        y, h_fin = _ssd(env, b, cfg.ssm_chunk,
+                        xh.float().transpose(1, 2).reshape(b * h, t, pdim),
+                        dt.transpose(1, 2).reshape(b * h, t), a.repeat(b),
+                        bg(bmat), bg(cmat), h0)
+        y = cm.anchor(y.reshape(b, h, t, pdim)).transpose(1, 2).to(x.dtype)
         h_fin = h_fin.reshape(b, h, s, pdim)
 
     y = y + p["d_skip"][None, None, :, None] * xh.float()
     y = y.reshape(b, t, dinner).to(x.dtype)
+    if uneven:                  # its gradient back with the heads whole
+        y = cm.anchor(y)
     y = cm.rms_norm(y * F.silu(z.float()).to(x.dtype), p["gate_norm"], cfg.norm_eps)
     new_state = ({"conv": new_conv, "h": h_fin}
                  if state is not None or single_step else None)
-    return res + y @ p["out_proj"], new_state
+    return env.act_btd(res + env.out_proj(y, env.weight(p["out_proj"], 0))), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -124,43 +156,47 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     }
 
 
-def _layer(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return mamba_apply(lp, x, cfg)[0]
+def _layer(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+           env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
+    return mamba_apply(lp, x, cfg, env)[0]
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   patches=None):
+                   patches=None, env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, T) -> (final hidden states (B, T, D), aux 0.0).  The final
     norm has no ``plus_one``.  The stacked leaves are unbound once (see
     ``hybrid.forward_hidden``)."""
     del patches
-    x = params["embed"][tokens]
+    x = env.act_btd(cm.embed(params["embed"], tokens, env))
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in cm.unstack(params["layers"], cfg.n_layers):
         if remat:
-            x = checkpoint(_layer, lp, cfg, x, use_reentrant=False,
+            x = checkpoint(_layer, lp, cfg, x, env, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _layer(lp, cfg, x)
+            x = _layer(lp, cfg, x, env)
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), 0.0
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x.float() @ params["embed"].float().T
+def _logits(params: Params, x: torch.Tensor,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
+    return env.linear(x.float(), params["embed"].float().T)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            patches=None):
+            patches=None, env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, T) -> (logits (B, T, V) f32, aux 0.0)."""
-    x, aux = forward_hidden(params, cfg, tokens, patches)
-    return _logits(params, x), aux
+    x, aux = forward_hidden(params, cfg, tokens, patches, env)
+    return env.act_btv(_logits(params, x, env)), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, patches=None) -> torch.Tensor:
+            labels: torch.Tensor, patches=None,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """Next-token cross-entropy (+ z-loss), token mean, fp32 scalar."""
-    hidden, _ = forward_hidden(params, cfg, tokens)
-    return cm.chunked_lm_loss(hidden, params["embed"].T, labels)
+    hidden, _ = forward_hidden(params, cfg, tokens, env=env)
+    return cm.chunked_lm_loss(hidden, params["embed"].T, labels, env=env,
+                              vocab_parallel=env.vocab_parallel)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
@@ -179,15 +215,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, 1) -> (logits (B, 1, V) f32, cache).  Updates ``cache`` in
     place (the reference returns a new one) and returns it."""
-    x = params["embed"][tokens]
+    x = cm.embed(params["embed"], tokens, env)
     for i in range(cfg.n_layers):
-        x, st = mamba_apply(cm.layer(params["layers"], i), x, cfg,
+        x, st = mamba_apply(cm.layer(params["layers"], i), x, cfg, env,
                             state={"conv": cache["conv"][i], "h": cache["h"][i]},
                             single_step=True)
-        cache["conv"][i] = st["conv"]
-        cache["h"][i] = st["h"]
+        cm.write(cache["conv"], (i,), st["conv"])
+        cm.write(cache["h"], (i,), st["h"])
     cache["pos"] += 1
     return _logits(params, cm.rms_norm(x, params["final_norm"], cfg.norm_eps)), cache

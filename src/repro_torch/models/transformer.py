@@ -116,84 +116,89 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return params
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """q (B, H, T, hd) and k, v (B, Hkv, T, hd) as views of the projections."""
-    b, t, _ = x.shape
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         env: cm.ShardEnv = cm.NO_SHARD):
+    """q (B, H, T, hd) and k, v (B, Hkv, T, hd) as views of the projections,
+    each placed by ``env.act_bhtd``."""
+    q, k, v = (env.linear(x, env.weight(p[w], 1)) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, t, cfg.n_heads, cfg.hd).transpose(1, 2),
-            k.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2),
-            v.reshape(b, t, cfg.n_kv_heads, cfg.hd).transpose(1, 2))
+    return (env.act_bhtd(env.split_heads(q, cfg.n_heads, cfg.hd)),
+            env.act_bhtd(env.split_heads(k, cfg.n_kv_heads, cfg.hd)),
+            env.act_bhtd(env.split_heads(v, cfg.n_kv_heads, cfg.hd)))
 
 
 def _attn_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, window: int) -> torch.Tensor:
-    b, t, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+                cfg: ModelConfig, window: int,
+                env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
+    q, k, v = env.kernel_bhtd(*_qkv(p, x, cfg, env))
     q = cm.apply_rope(q, positions, cfg.rope_theta)
     k = cm.apply_rope(k, positions, cfg.rope_theta)
     o = cm.attention(q, k, v, causal=True, window=window,
-                     softcap=cfg.attn_softcap)
-    return o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
+                     softcap=cfg.attn_softcap, env=env)
+    return env.out_proj(env.merge_heads(o), env.weight(p["wo"], 0))
 
 
-def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig):
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig,
+         env: cm.ShardEnv = cm.NO_SHARD):
     """The layer's MLP or MoE on the normed ``h``: (out, aux loss; 0.0 for
     an MLP)."""
     if cfg.n_experts > 0:
-        return moe.moe_apply(p["moe"], h, cfg)
-    return cm.mlp_apply(p["mlp"], h, cfg.mlp_type), 0.0
+        return moe.moe_apply(p["moe"], h, cfg, env)
+    return cm.mlp_apply(p["mlp"], h, cfg.mlp_type, env), 0.0
 
 
 def _block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, window: int):
+                 cfg: ModelConfig, window: int, env: cm.ShardEnv = cm.NO_SHARD):
     """One transformer block; returns (x, aux_loss)."""
     sandwich = cfg.local_global_period > 0
     h = cm.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=True)
-    h = _attn_apply(p["attn"], h, positions, cfg, window)
+    h = _attn_apply(p["attn"], h, positions, cfg, window, env)
     if sandwich:
         h = cm.rms_norm(h, p["ln1_post"], cfg.norm_eps, plus_one=True)
-    x = x + h
-    h, aux = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg)
+    x = env.act_btd(x + h)
+    h, aux = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg,
+                  env)
     if sandwich:
         h = cm.rms_norm(h, p["ln2_post"], cfg.norm_eps, plus_one=True)
-    return x + h, aux
+    return env.act_btd(x + h), aux
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 patches: Optional[torch.Tensor] = None,
+                 env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """Token embeddings (gemma's scaled by √d_model in fp32, then rounded),
     with the VLM patch prefix projected (GELU between the two products, on
     the fp32 product as the reference applies it) and prepended."""
-    x = params["embed"][tokens]
+    x = cm.embed(params["embed"], tokens, env)
     if cfg.local_global_period > 0:  # gemma-style embedding scaling
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     if patches is not None:
         mm = params["mm_proj"]
-        pe = cm.gelu(patches.to(x.dtype).float() @ mm["w1"].float())
-        x = torch.cat([pe.to(x.dtype) @ mm["w2"], x], dim=1)
-    return x
+        pe = cm.gelu(env.linear(patches.to(x.dtype).float(), mm["w1"].float()))
+        x = torch.cat([env.linear(pe.to(x.dtype), mm["w2"]), x], dim=1)
+    return env.act_btd(x)
 
 
 def _group(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD):
     """One group: its sub-layers (per-layer trees) in order; returns (x, the
     sum of their aux losses)."""
     aux = 0.0
     for s, lp in enumerate(layers):
-        x, a = _block_apply(lp, x, positions, cfg, sublayer_window(cfg, s))
+        x, a = _block_apply(lp, x, positions, cfg, sublayer_window(cfg, s), env)
         aux = aux + a
     return x, aux
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   patches: Optional[torch.Tensor] = None):
+                   patches: Optional[torch.Tensor] = None,
+                   env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, S) [+ patches (B, P, F)] -> (final hidden (B, T, D), aux):
     aux is the MoE load-balancing loss summed over the layers (an fp32
     scalar), 0.0 for a family without experts.  Each group sub-layer's
     stacked leaves are unbound once (see ``hybrid.forward_hidden``)."""
-    x = embed_inputs(params, cfg, tokens, patches)
+    x = embed_inputs(params, cfg, tokens, patches, env)
     positions = torch.arange(x.shape[1], device=x.device)
     ng = n_groups(cfg)
     stacks = [cm.unstack(stack, ng) for stack in params["groups"]]
@@ -202,10 +207,10 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(ng):
         layers = [stack[i] for stack in stacks]
         if remat:
-            x, a = checkpoint(_group, layers, cfg, x, positions, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(_group, layers, cfg, x, positions, env,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = _group(layers, cfg, x, positions)
+            x, a = _group(layers, cfg, x, positions, env)
         aux = aux + a
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True), aux
 
@@ -214,36 +219,39 @@ def lm_head(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """fp32 logits of the final hidden states, soft-capped where the config
-    says (in place when no gradient flows: gemma2's are 8.4 GB at 8192
-    tokens)."""
-    logits = x.float() @ lm_head(params, cfg).float()
+    says (in place when no gradient flows and no mesh places them:
+    gemma2's are 8.4 GB at 8192 tokens)."""
+    logits = env.linear(x.float(), lm_head(params, cfg).float())
     cap = cfg.final_softcap
     if cap <= 0.0:
         return logits
-    if logits.requires_grad:
+    if logits.requires_grad or env.mesh is not None:
         return cap * torch.tanh(logits / cap)
     return logits.div_(cap).tanh_().mul_(cap)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None,
+            env: cm.ShardEnv = cm.NO_SHARD):
     """tokens (B, S) [+ patches (B, P, F)] -> (logits (B, T, V) f32, aux)."""
-    x, aux = forward_hidden(params, cfg, tokens, patches)
-    return _logits(params, cfg, x), aux
+    x, aux = forward_hidden(params, cfg, tokens, patches, env)
+    return env.act_btv(_logits(params, cfg, x, env)), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, patches: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            labels: torch.Tensor, patches: Optional[torch.Tensor] = None,
+            env: cm.ShardEnv = cm.NO_SHARD) -> torch.Tensor:
     """Next-token cross-entropy (+ z-loss) over the text (the suffix after
     the patch prefix), soft-capped logits, + 0.01·aux."""
-    hidden, aux = forward_hidden(params, cfg, tokens, patches)
+    hidden, aux = forward_hidden(params, cfg, tokens, patches, env)
     if patches is not None:
         hidden = hidden[:, patches.shape[1]:]
     loss = cm.chunked_lm_loss(hidden, lm_head(params, cfg), labels,
-                              softcap=cfg.final_softcap)
+                              softcap=cfg.final_softcap, env=env,
+                              vocab_parallel=env.vocab_parallel)
     return loss + 0.01 * aux
 
 
@@ -268,7 +276,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
 
 
 def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
-                 vc: torch.Tensor, pos: int, cfg: ModelConfig, win: int
+                 vc: torch.Tensor, pos: int, cfg: ModelConfig, win: int,
+                 env: cm.ShardEnv = cm.NO_SHARD
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One transformer block for a single decode token at position ``pos``.
     Writes the token's K and V into the caches ``kc``/``vc`` (B, Hkv, Tc, hd)
@@ -279,21 +288,22 @@ def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
     tc = kc.shape[2]
     sandwich = cfg.local_global_period > 0
     hh = cm.rms_norm(x, p["ln1"], cfg.norm_eps, plus_one=True)
-    q, kk, vv = _qkv(p["attn"], hh, cfg)
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, kk, vv = _qkv(p["attn"], hh, cfg, env)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=kk.device)
     q = cm.apply_rope(q, posv, cfg.rope_theta)
     kk = cm.apply_rope(kk, posv, cfg.rope_theta)
     slot = pos % tc if rolling else min(pos, tc - 1)
-    kc[:, :, slot] = kk[:, :, 0]
-    vc[:, :, slot] = vv[:, :, 0]
+    cm.write(kc, (slice(None), slice(None), slot), kk[:, :, 0])
+    cm.write(vc, (slice(None), slice(None), slot), vv[:, :, 0])
     o = cm.decode_attention(q, kc, vc, pos + 1, softcap=cfg.attn_softcap,
-                            rolling=rolling)
+                            rolling=rolling, env=env)
     attn_out = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
     if sandwich:
         attn_out = cm.rms_norm(attn_out, p["ln1_post"], cfg.norm_eps,
                                plus_one=True)
     x = x + attn_out
-    mlp_out, _ = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg)
+    mlp_out, _ = _ffn(p, cm.rms_norm(x, p["ln2"], cfg.norm_eps, plus_one=True), cfg,
+                      env)
     if sandwich:
         mlp_out = cm.rms_norm(mlp_out, p["ln2_post"], cfg.norm_eps,
                               plus_one=True)
@@ -301,18 +311,18 @@ def decode_block(p: Params, x: torch.Tensor, kc: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, env: cm.ShardEnv = cm.NO_SHARD):
     """One token for every sequence: tokens (B, 1) -> (logits (B, 1, V) f32,
     cache).  Updates ``cache`` in place (the reference returns a new one)
     and returns it."""
     pos = cache["pos"]
-    x = params["embed"][tokens]
+    x = cm.embed(params["embed"], tokens, env)
     if cfg.local_global_period > 0:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     for i in range(n_groups(cfg)):
         for s, (stack, kv) in enumerate(zip(params["groups"], cache["layers"])):
             x, _, _ = decode_block(cm.layer(stack, i), x, kv["k"][i], kv["v"][i], pos,
-                                   cfg, sublayer_window(cfg, s))
+                                   cfg, sublayer_window(cfg, s), env)
     cache["pos"] = pos + 1
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps, plus_one=True)
-    return _logits(params, cfg, x), cache
+    return _logits(params, cfg, x, env), cache

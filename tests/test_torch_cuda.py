@@ -1190,3 +1190,53 @@ def test_moe_forward_with_the_kernel_matches_the_plain_attention(card, monkeypat
     assert bool(torch.isfinite(got).all()) and own > 0
     assert rms(got, plain) <= 2 * own, (rms(got, plain), own)
     assert abs(float(aux) - float(plain_aux)) <= 1e-2 * float(plain_aux)
+
+
+def test_meshed_step_on_one_rank_matches_unmeshed(card, tmp_path):
+    """zamba2 SMOKE on a one-rank NCCL group and a 1 x 1 mesh: the meshed
+    loss and gradients (DTensor parameters and batch, the kernels on each
+    rank's local shards through ``local_map``) equal the unmeshed ones, with
+    the same attention and SSD launches, route by route, on both."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticPipeline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import common as cm
+    from repro_torch.models.model import build_model
+    from repro_torch.train import loss_and_grads
+    cfg = get_smoke_config("zamba2-2.7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(3), card)
+    for stack in (params["layers"], params["shared"]):
+        for key in ("norm", "gate_norm", "ln1", "ln2"):
+            if key in stack:
+                stack[key].normal_(0.0 if key.startswith("ln") else 1.0, 0.1)
+    pcfg = PipelineConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size)
+
+    def counts():
+        return {**{f"attn/{r}": n for r, n in fk.flash_attention.route_launches.items()},
+                **{f"ssd/{r}": n for r, n in sk.ssd_chunk.route_launches.items()}}
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        c0 = counts()
+        loss_u, grads_u = loss_and_grads(model, params, SyntheticPipeline(
+            pcfg, device=card).batch_at(0))
+        c1 = counts()
+        placed = sh.distribute(params, sh.param_shardings(params, mesh))
+        loss_m, grads_m = loss_and_grads(model, placed, SyntheticPipeline(
+            pcfg, mesh).batch_at(0), cm.ShardEnv(mesh=mesh))
+        c2 = counts()
+        got = {p: g.to_local() for p, g in zip(*sh.tree_paths(grads_m)[:2])}
+    finally:
+        dist.destroy_process_group()
+    unmeshed = {k: c1[k] - c0[k] for k in c0}
+    meshed = {k: c2[k] - c1[k] for k in c1}
+    assert unmeshed == meshed and unmeshed["attn/tile"] > 0 and unmeshed["ssd/mma"] > 0
+    torch.testing.assert_close(loss_m, loss_u, rtol=1e-5, atol=0)
+    for p, w in zip(*sh.tree_paths(grads_u)[:2]):
+        scale = max(1e-6, float(w.abs().max()))
+        torch.testing.assert_close(got[p], w, rtol=1e-4, atol=1e-4 * scale, msg=p)

@@ -126,8 +126,22 @@ import repro_torch.optim
 import repro_torch.data
 import repro_torch.train
 import repro_torch.distributed
+import repro_torch.distributed.sharding
+import repro_torch.distributed.compression
 import repro_torch.launch.train
 import repro_torch.convert
+import torch.distributed as dist
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), 1),
+                        rank=0, world_size=1)
+from repro_torch.core.compat import make_mesh
+mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+tree = {"embed": torch.ones(8, 4), "lm_head": torch.ones(4, 8)}
+placed = repro_torch.distributed.distribute(
+    tree, repro_torch.distributed.param_shardings(tree, mesh))
+repro_torch.optim.global_norm(placed)
+repro_torch.distributed.compressed_psum(torch.ones(4, 5), mesh, "data",
+                                        torch.Generator().manual_seed(0))
+dist.destroy_process_group()
 st = repro_torch.launch.train.main(
     ["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--steps", "2",
      "--batch", "2", "--seq", "16", "--ckpt-dir", os.path.join(d, "t"),

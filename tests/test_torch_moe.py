@@ -143,10 +143,11 @@ def test_routing_positions_are_token_major():
     _, cfg = _configs("mixtral-8x7b", capacity_factor=1.0)
     _, p = layer("mixtral-8x7b")
     r = moe.routing(p["router"], torch.from_numpy(_x(2, 32, 64, seed=2)), cfg)
-    assign = r.assign.tolist()
+    assert r.assign.shape == r.pos.shape == (1, 128)     # one shard without a mesh
+    assign = r.assign[0].tolist()
     want = [assign[:i].count(a) for i, a in enumerate(assign)]
-    assert r.pos.tolist() == want
-    assert r.keep.tolist() == [q < r.cap for q in want]
+    assert r.pos[0].tolist() == want
+    assert r.keep[0].tolist() == [q < r.cap for q in want]
     assert r.cap == moe.capacity(cfg, 32, 64) == 32
     assert moe.capacity(cfg, 1, 64) == 128           # decode: dropless
     assert moe.capacity(dataclasses.replace(cfg, capacity_factor=0.01), 32, 64) == 8
