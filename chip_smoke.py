@@ -383,6 +383,32 @@ raises and the script exits non-zero):
     losses equal phase 15's unmeshed driver's.  With four cards, four
     NCCL ranks take yi-9b at its published width (4 layers) on a 2 x 2
     mesh, the loss within 1e-2 of one card's.
+20. MoE training and the multi-node dry run: mixtral-8x7b at its
+    published width cut to 4 of 32 layers (6.07 B parameters), bf16
+    weights from ``--seed`` with the norms redrawn, AdamW with bf16 moments
+    (``launch.dryrun.pick_optimizer``'s choice at that size), remat on, B 1
+    x T 8,192 from ``pipeline_for_model``, accumulation 1 (``pick_accum``
+    asks 2 for the family, which B = 1 cannot split), no mesh.  One
+    loss-and-gradients call against the plain one (the loss within 2·E of
+    the float32 twin's gap, the gradients' cosine at least 0.99), exactly
+    8 ``wgmma`` attention launches a step (forward and remat recompute);
+    4 AdamW steps (s/step the median of steps 2-4, tokens/s,
+    ``max_memory_allocated``) and a fifth profiled by group (the expert
+    MLPs and their ``bmm`` backward, the dispatch's scatter/gather and
+    backward, attention forward and backward, the rest).  Then
+    ``launch.dryrun.estimate`` of exactly that step, and of phase 15's
+    zamba2-2.7b step, on ``meta`` tensors: each estimated peak (plus the
+    bytes live on the card outside the step) within 10 % of the card's
+    ``max_memory_allocated``, the arguments' bytes equal, the estimate's
+    flops over the measured s/step in TFLOP/s and as a share of 989 bf16.
+    Meanwhile ``python -m repro_torch.launch.dryrun`` runs in niced child
+    processes, six at a time, with the card hidden: every arch at
+    ``train_4k`` on one pod
+    (256 ranks), one ``prefill_32k``, one ``decode_32k``, one
+    ``long_500k`` and one two-pod cell; no cell may err, and each prints
+    its mode, accumulation, rank 0's peak against the card's memory, flops
+    and collective bytes by kind.  The kernels line adds the phase's
+    launches (``dryrun``).
 
 The line before the last is ``{"kernels": [...]}`` with one object per
 kernel and route; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -5013,6 +5039,9 @@ def phase_train(torch, seed, smi):
     train = dict.fromkeys(per_step, 0)
     losses, norms, times = [], [], []
     torch.cuda.synchronize()
+    from repro_torch.launch.costs import storage_bytes
+    held = {"argument_bytes": storage_bytes((state, batch)),    # phase 20 reads these
+            "live_bytes": torch.cuda.memory_allocated()}
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_STEPS):
         b = pipe.batch_at(i)
@@ -5027,7 +5056,8 @@ def phase_train(torch, seed, smi):
             train[key] += got[key]
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 1e9
     leaves = pytree.tree_leaves(state.params)
     finite = all(bool(torch.isfinite(s).all()) for t in leaves
                  for s in (t.split(1) if t.ndim >= 3 else (t,)))
@@ -5135,8 +5165,10 @@ def phase_train(torch, seed, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[15] card: {smi}; train phase: {json.dumps(rec)}", flush=True)
     ck.raise_any()
+    held.update(peak_bytes=peak_bytes, s_per_step=s_step)
     return train, {"loss_limit": rec["loss_limit"], "s_per_step": s_step,
-                   "peak_gb": peak, "driver": driver_summary(log.getvalue())}
+                   "peak_gb": peak, "driver": driver_summary(log.getvalue()),
+                   "step": held}
 
 
 # ---------------------------------------------------------------------------
@@ -6510,6 +6542,405 @@ def phase_mesh(torch, seed, smi, train_ref):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 20: MoE training on one card, and the dry run held to it
+# ---------------------------------------------------------------------------
+
+DRY_ARCH, DRY_LAYERS, DRY_BATCH, DRY_SEQ = "mixtral-8x7b", 4, 1, 8192
+DRY_STEPS = 4                         # AdamW steps timed (median of steps 2-4)
+DRY_TOL = 0.10                        # |estimated peak / measured peak - 1| at most this
+BF16_PEAK_FLOPS = 989e12              # H100 SXM dense bf16
+DRY_CLI_TIMEOUT = 900                 # s for each dry-run CLI child
+# the dry run's own CLI: every arch at train_4k on one pod, and one cell of
+# each other shape and of two pods, one niced child per cell and one child
+# at a time per lane (six lanes and the phase's own process on the host's
+# eight cores; grok-1's cell alone takes 130-150 s)
+DRY_CLI_LANES = tuple(
+    tuple(["--arch", a, "--shape", "train_4k"] for a in lane) for lane in (
+        ("grok-1-314b",), ("zamba2-2.7b", "mamba2-370m"),
+        ("mixtral-8x7b", "nemotron-4-15b"), ("yi-9b", "llava-next-mistral-7b"),
+        ("gemma2-2b", "qwen1.5-0.5b", "seamless-m4t-medium"))) + ((
+            ["--arch", "yi-9b", "--shape", "prefill_32k"],
+            ["--arch", "zamba2-2.7b", "--shape", "decode_32k"],
+            ["--arch", "mamba2-370m", "--shape", "long_500k"],
+            # 32 sequences over 64 data ranks: the batch replicates
+            ["--arch", "mixtral-8x7b", "--shape", "prefill_32k", "--multi-pod", "on"]),)
+# the device time of a training step by group: forward ranges (they cover
+# the remat recompute too) and the backward nodes of the same ops
+DRY_RANGES = {"expert MLPs": ("repro_torch.models.moe", "experts"),
+              "dispatch scatter": ("repro_torch.models.moe", "_scatter"),
+              "dispatch gather": ("repro_torch.models.moe", "_gather")}
+DRY_BACKWARD = {"expert bmm backward": ("BmmBackward0",),
+                "dispatch backward": ("IndexPutBackward0", "IndexBackward0"),
+                "attention backward (plain)": ("AttentionFunctionBackward",)}
+
+
+def dry_cli_child(args, n: int):
+    """Start ``python -m repro_torch.launch.dryrun`` on ``args``, at the
+    lowest CPU priority (it needs no card and must not slow the timed
+    steps), with the card hidden (a "cuda" mesh on the fake group needs
+    none, and the child would otherwise hold a context on it), its JSON and
+    log under ``build/dryrun``: (args, process, JSON path, log)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), CUDA_VISIBLE_DEVICES="")
+    path = os.path.join(out, f"cells{n}.json")
+    log = open(os.path.join(out, f"cells{n}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", path],
+        env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.nice(19))
+    return args, proc, path, log
+
+
+class DryCli:
+    """The CLI children of DRY_CLI_LANES: the first cell of each lane
+    starts at once, the next when its lane's child ends."""
+
+    def __init__(self):
+        self.queued = [list(lane) for lane in DRY_CLI_LANES]
+        self.started = 0
+        self.running = [self._next(lane) for lane in self.queued]
+
+    def _next(self, lane):
+        if not lane:
+            return None
+        self.started += 1
+        return dry_cli_child(lane.pop(0), self.started)
+
+    def kill(self):
+        for child in self.running:
+            if child is not None and child[1].poll() is None:
+                child[1].kill()
+                child[1].wait()
+            if child is not None:
+                child[3].close()
+
+    def finish(self, torch, ck):
+        """Wait for every cell (killing the children left on a failure) and
+        print each: mode, accumulation, rank 0's peak against the card's
+        memory, flops and collective bytes by kind.  Returns the rows."""
+        total = torch.cuda.get_device_properties(0).total_memory
+        rows = []
+        t0 = time.perf_counter()
+        try:
+            while any(self.running):
+                for k, child in enumerate(self.running):
+                    if child is None or child[1].poll() is None:
+                        continue
+                    self.running[k] = self._next(self.queued[k])
+                    rows += dry_cli_rows(child, total, ck, time.perf_counter() - t0)
+                check(time.perf_counter() - t0 < DRY_CLI_TIMEOUT,
+                      f"dry-run CLI children still running after {DRY_CLI_TIMEOUT} s")
+                time.sleep(0.2)
+        finally:
+            self.kill()
+        return rows
+
+
+def dry_cli_rows(child, total: int, ck, waited: float):
+    """The rows of one ended CLI child, each printed."""
+    args, proc, path, log = child
+    log.close()
+    text = open(log.name).read()
+    ck(proc.returncode == 0, f"dryrun {' '.join(args)} exited {proc.returncode}: "
+                             f"{text[-2000:]}")
+    if proc.returncode != 0 or not os.path.exists(path):
+        return []
+    rows = []
+    for r in json.load(open(path)):
+        ck(r["status"] in ("ok", "skipped"), f"dryrun cell {r['arch']} x {r['shape']}: "
+                                             f"{r['status']} {r.get('error', '')[:300]}")
+        if r["status"] != "ok":
+            continue
+        h = r["hlo"]
+        row = {"cell": f"{r['arch']} x {r['shape']} x {'2pod' if r['multi_pod'] else '1pod'}",
+               "mode": r.get("mode"), "accum_steps": r.get("accum_steps"),
+               "optimizer": r.get("optimizer"), "peak_gb": r["memory"]["peak_bytes"] / 1e9,
+               "fits": r["memory"]["peak_bytes"] <= total,
+               "flops": h["flops"], "hbm_bytes": h["hbm_bytes"],
+               "collective_bytes": {k: h[f"{k}_bytes"] for k in (
+                   "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                   "collective-permute") if h[f"{k}_bytes"]},
+               "total_s": r["total_s"], "ended_s": waited}
+        rows.append(row)
+        print(f"[20] dryrun {row['cell']}: mode {row['mode']}, accumulation "
+              f"{row['accum_steps']}, rank 0's peak {row['peak_gb']:.2f} GB of "
+              f"{total / 1e9:.2f} GB ({'fits' if row['fits'] else 'DOES NOT FIT'}), "
+              f"{row['flops']:.4e} flops, collectives "
+              f"{json.dumps(row['collective_bytes'])} bytes ({row['total_s']} s)",
+              flush=True)
+    return rows
+
+
+def step_profile(torch, fn, what: str):
+    """One training step under ``torch.profiler``: the device time of its
+    kernels by group: the forward ranges DRY_RANGES (the remat recompute
+    runs them again), the backward nodes DRY_BACKWARD (their kernels, by
+    the autograd node that launched them), the attention kernel, and the
+    rest.  Returns the groups in ms, or None when the trace holds no device
+    time."""
+    import importlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, real):
+        def wrapper(*args, **kw):
+            with record_function(name):
+                return real(*args, **kw)
+        return wrapper
+
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in DRY_RANGES.items():
+            obj = importlib.import_module(mod)
+            stack.enter_context(patched(obj, attr, ranged(name, getattr(obj, attr))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # a range's own device-side span is not a kernel
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in DRY_RANGES]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    if not busy:
+        print(f"[20] profile {what}: the profiler recorded no device time: not measured")
+        return None
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    groups = {name: sum(e.device_time_total for e in cpu if e.name == name) / 1e3
+              for name in DRY_RANGES}
+    prefix = "autograd::engine::evaluate_function: "
+    for group, nodes in DRY_BACKWARD.items():
+        groups[group] = sum(e.device_time_total for e in cpu
+                            if e.name.startswith(prefix)
+                            and e.name[len(prefix):] in nodes) / 1e3
+    groups["attention forward (kernel)"] = sum(
+        e.device_time_total for e in kernels if "attn_wgmma_kernel" in e.name) / 1e3
+    groups["rest"] = busy - sum(groups.values())
+    top = {}
+    for e in kernels:
+        n, t = top.get(e.name, (0, 0.0))
+        top[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    top = sorted(top.items(), key=lambda kv: -kv[1][1])[:10]
+    print(f"[20] profile {what}: window {wall_ms:.1f} ms, device busy {busy:.1f} ms; by "
+          f"group (ms): {json.dumps({k: round(v, 3) for k, v in groups.items()})}",
+          flush=True)
+    for name, (n, t) in top:
+        print(f"[20]   {t:10.3f} ms  x{n:<5d} {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "groups_ms": groups,
+            "top": [[name[:110], n, t] for name, (n, t) in top]}
+
+
+def moe_train(torch, seed, smi, ck, rec):
+    """Phase 20's path on the card: mixtral-8x7b at its published width cut
+    to DRY_LAYERS layers, trained at B DRY_BATCH x T DRY_SEQ with the
+    optimizer ``dryrun.pick_optimizer`` picks at its size.  Returns (the
+    config, the optimizer, the measured step, the launch counts)."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline_for_model
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import costs, dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainState, loss_and_grads, make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    cfg = dataclasses.replace(get_config(DRY_ARCH), n_layers=DRY_LAYERS)
+    check(cfg.remat and cfg.dtype == "bfloat16", f"{cfg.name}: remat {cfg.remat}")
+    opt, opt_name = dryrun.pick_optimizer(cfg, cfg.param_count())
+    model = build_model(cfg)
+    with torch.no_grad():
+        params = model.init(gen, "cuda")
+        redraw_family_norms(params, gen, 0.0)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    pipe = pipeline_for_model(cfg, DRY_BATCH, DRY_SEQ, seed=seed, device="cuda")
+    batch = pipe.batch_at(0)
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention/wgmma": 2 * cfg.n_layers,
+                "flash_attention/tile": 0, "flash_attention/rows": 0, "ssd_chunk": 0}
+    rec.update(params=n_params, active_params=cfg.active_param_count(),
+               optimizer=opt_name)
+    print(f"[20] {cfg.name} cut to {cfg.n_layers} of 32 layers: {n_params} parameters "
+          f"({cfg.active_param_count()} active), bf16, remat on, optimizer {opt_name} "
+          f"(dryrun.pick_optimizer); B {DRY_BATCH} x T {DRY_SEQ}, accumulation 1 "
+          f"(pick_accum's 2 for moe needs B >= 2), no mesh", flush=True)
+    counts = {}
+
+    def add(got):
+        for key, n in got.items():
+            counts[key] = counts.get(key, 0) + n
+
+    # 1. the kernels' step against the plain step (phase 15's limits); the
+    # plain attention scores 8 query heads at a time (the same function)
+    with torch.no_grad(), plain_kernels(), patched(fops, "attention_ref",
+                                                   attention_by_heads):
+        params32 = pytree.tree_map(lambda t: t.float(), params)
+        twin = float(build_model(dataclasses.replace(cfg, dtype="float32")).loss(
+            params32, batch.tokens, batch.labels))
+        del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    got = read_counts()
+    expect_counts(got, per_step, "loss and gradients, kernels", "[20]")
+    add(got)
+    with plain_kernels(), patched(fops, "attention_ref", attention_by_heads):
+        loss_p, grads_p = loss_and_grads(model, params, batch)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    e = abs(loss_p - twin)
+    cos, ratio = grad_agreement(torch, grads_k, grads_p)
+    del grads_k, grads_p
+    rec.update(loss_kernels=loss_k, loss_plain=loss_p, loss_f32_twin=twin,
+               loss_gap=abs(loss_k - loss_p), loss_limit=2 * e, grad_cos=cos,
+               grad_norm_ratio=ratio)
+    ck(abs(loss_k - loss_p) <= 2 * e, f"loss {loss_k} (kernels) vs {loss_p} (plain): "
+       f"gap beyond 2 x E = 2 x {e} (bf16 plain vs the float32 twin {twin})")
+    ck(cos >= GRAD_COS, f"gradients' cosine {cos} < {GRAD_COS}")
+    ck(abs(ratio - 1) <= GRAD_NORM_RATIO, f"gradient norm ratio {ratio}")
+    print(f"[20] loss kernels {loss_k:.6f}, plain {loss_p:.6f} (gap "
+          f"{abs(loss_k - loss_p):.3e}, limit 2 x E = {2 * e:.3e}, float32 twin "
+          f"{twin:.6f}); gradients: cosine {cos:.6f}, norm ratio {ratio:.6f}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. DRY_STEPS AdamW steps: s/step, tokens/s, the peak over the steps
+    state = TrainState(params=params, opt_state=opt.init(params))
+    del params
+    step_fn = make_train_step(model, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    step = {"argument_bytes": costs.storage_bytes((state, batch)),
+            "live_bytes": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(DRY_STEPS):
+        b = pipe.batch_at(i)
+        zero_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = read_counts()
+        expect_counts(got, per_step, f"train step {i}", "[20]")
+        add(got)
+        losses.append(float(m["loss"]))
+    step["peak_bytes"] = torch.cuda.max_memory_allocated()
+    import math
+    ck(all(map(math.isfinite, losses)), f"losses {losses}")
+    ck(int(state.step) == DRY_STEPS, f"count {int(state.step)} after {DRY_STEPS} steps")
+    s_step = statistics.median(times[1:])
+    step.update(losses=losses, step_s=times, s_per_step=s_step,
+                tokens_per_s=DRY_BATCH * DRY_SEQ / s_step,
+                attention_launches_per_step=per_step["flash_attention/wgmma"])
+    print(f"[20] {DRY_STEPS} AdamW steps: losses {[round(x, 4) for x in losses]}; "
+          f"{s_step:.3f} s/step (median of steps 2-{DRY_STEPS}; step 1 {times[0]:.3f} s), "
+          f"{step['tokens_per_s']:.0f} tokens/s, max_memory_allocated "
+          f"{step['peak_bytes'] / 1e9:.3f} GB (card: {smi})", flush=True)
+
+    # 3. one more step, profiled by group
+    zero_counts()
+    b = pipe.batch_at(DRY_STEPS)
+
+    def one():
+        nonlocal state
+        state, _ = step_fn(state, b)
+
+    step["profile"] = step_profile(torch, one, f"{cfg.name} ({cfg.n_layers} layers) "
+                                               f"train step {tuple(b.tokens.shape)}")
+    got = read_counts()
+    expect_counts(got, per_step, "the profiled train step", "[20]")
+    add(got)
+    del state, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, opt, step, counts
+
+
+def held_to_card(torch, ck, what: str, est, step, smi):
+    """The dry run's estimate of a step beside what the card measured: the
+    arguments' bytes (equal), the peak (the live bytes that are not the
+    step's arguments added: the script's own tensors, the caches of
+    earlier phases), and the estimate's flops over the measured s/step."""
+    mem = est["memory"]
+    other = step["live_bytes"] - step["argument_bytes"]
+    want = mem["peak_bytes"] + other
+    got = step["peak_bytes"]
+    flops = est["hlo"]["flops"]
+    row = {"what": what, "estimated_peak_gb": mem["peak_bytes"] / 1e9,
+           "other_live_gb": other / 1e9, "measured_peak_gb": got / 1e9,
+           "peak_ratio": want / got, "argument_bytes": mem["argument_bytes"],
+           "card_argument_bytes": step["argument_bytes"], "flops": flops,
+           "tflops": flops / step["s_per_step"] / 1e12,
+           "bf16_share": flops / step["s_per_step"] / BF16_PEAK_FLOPS,
+           "trace_s": est["trace_s"], "kernel_calls": est["kernel_calls"]}
+    ck(mem["argument_bytes"] == step["argument_bytes"],
+       f"{what}: the dry run's arguments {mem['argument_bytes']} bytes, the card's "
+       f"{step['argument_bytes']}")
+    ck(abs(want / got - 1) <= DRY_TOL,
+       f"{what}: the dry run's peak {want / 1e9:.3f} GB (its own "
+       f"{mem['peak_bytes'] / 1e9:.3f} + {other / 1e9:.3f} GB live outside the step) "
+       f"against max_memory_allocated {got / 1e9:.3f} GB: beyond {DRY_TOL:.0%}")
+    print(f"[20] dry run against the card, {what}: peak estimated "
+          f"{row['estimated_peak_gb']:.3f} GB (+ {row['other_live_gb']:.3f} GB live outside "
+          f"the step = {want / 1e9:.3f}) vs max_memory_allocated {got / 1e9:.3f} GB "
+          f"(ratio {row['peak_ratio']:.4f}, limit 1 +- {DRY_TOL}); arguments "
+          f"{mem['argument_bytes']} bytes (card {step['argument_bytes']}); "
+          f"{flops:.4e} flops a step / {step['s_per_step']:.3f} s = {row['tflops']:.1f} "
+          f"TFLOP/s, {row['bf16_share']:.3f} of 989 bf16 (card: {smi}); traced in "
+          f"{est['trace_s']} s", flush=True)
+    return row
+
+
+def phase_dryrun(torch, seed, smi, train_ref):
+    """Phase 20: MoE training on one card (mixtral-8x7b at its published
+    width, 4 of 32 layers), the dry run's estimates of that step and of
+    phase 15's held to the card's allocator, and the dry run's CLI over
+    DRY_CLI_CELLS.  Returns the kernels' launches by route."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    ck = Checks("[20]")
+    rec = {"card": smi}
+    children = DryCli()
+    try:
+        cfg, opt, step, counts = moe_train(torch, seed, smi, ck, rec)
+        rec["moe_step"] = step
+        rec["moe_s"] = time.perf_counter() - t_phase
+        est = dryrun.estimate(cfg, ShapeCell("phase20", DRY_SEQ, DRY_BATCH, "train"),
+                              opt, 1, None)
+        rec["held"] = [held_to_card(torch, ck, f"{cfg.name} {cfg.n_layers} layers, B "
+                                    f"{DRY_BATCH} x T {DRY_SEQ}, {rec['optimizer']}",
+                                    est, step, smi)]
+        lm = get_config(LM_ARCH)
+        est = dryrun.estimate(lm, ShapeCell("phase15", LM_SEQ, LM_BATCH, "train"),
+                              make_optimizer("adamw"), 1, None)
+        rec["held"].append(held_to_card(
+            torch, ck, f"{lm.name} (phase 15), B {LM_BATCH} x T {LM_SEQ}, adamw-fp32",
+            est, train_ref["step"], smi))
+        rec["estimates_s"] = time.perf_counter() - t_phase - rec["moe_s"]
+    except BaseException:
+        children.kill()
+        raise
+    rec["cli"] = children.finish(torch, ck)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["launches"] = {k: v for k, v in counts.items() if v}
+    print(f"[20] card: {smi}; dry-run phase: {json.dumps(rec)}", flush=True)
+    ck.raise_any()
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6620,12 +7051,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     meshed = phase_mesh(torch, args.seed, smi, train_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch, args.seed, smi, train_ref)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
             for path, counts in (("train", trained), ("families", families),
-                                 ("encdec", encdec), ("moe", moe), ("mesh", meshed)):
+                                 ("encdec", encdec), ("moe", moe), ("mesh", meshed),
+                                 ("dryrun", dry)):
                 line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
                 line["launches"] += counts.get(f"{kind}/{route}", 0)
                 if "launches_by_route" in line:

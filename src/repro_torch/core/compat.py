@@ -18,6 +18,9 @@ process group is the caller's (``torchrun``, or
 ``torch.distributed.init_process_group`` with an explicit store and rank).
 :func:`make_mesh` never creates one, and no environment variable picks the
 device or the backend: NCCL backs a ``"cuda"`` mesh, gloo a ``"cpu"`` one.
+A ``"cuda"`` mesh may also stand on torch's ``fake`` process group, which
+moves nothing: the dry run (``launch.dryrun``) builds the production mesh
+of 256 or 512 ranks on it in one process, with every tensor on ``meta``.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             f"{_BACKEND[device_type]!r}, store=..., rank=..., world_size=...) "
             "in every rank first")
     backend = str(dist.get_backend())
-    if _BACKEND[device_type] not in backend:
+    if _BACKEND[device_type] not in backend and not (
+            device_type == "cuda" and backend == "fake"):
         raise ValueError(f"a {device_type!r} mesh needs the "
                          f"{_BACKEND[device_type]} backend; the process "
                          f"group runs {backend}")

@@ -64,17 +64,15 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "tile"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int, softcap: float, sm_scale: float,
-                    q_offset: int = 0, kv_len: Optional[int] = None
-                    ) -> torch.Tensor:
-    """Attention on the card; see ``ref.attention_ref`` for the function."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, device: str):
+    """(b, hq, hkv, tq, tk, d) of a call on ``device`` tensors the kernel takes;
+    raises as the launch does for any other."""
     _build.refuse_dtensor("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention", q, k, v)
     tensors = (q, k, v)
-    if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
-        raise ValueError("flash_attention wants CUDA tensors on one device, "
-                         f"got {[str(t.device) for t in tensors]}")
+    if any(t.device.type != device or t.device != q.device for t in tensors):
+        raise ValueError(f"flash_attention wants {device.upper()} tensors on "
+                         f"one device, got {[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes f32/bf16/f16 of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -89,10 +87,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match (D <= {MAX_HEAD_DIM},"
                          f" Hq a multiple of Hkv)")
+    return b, hq, hkv, tq, tk, d
+
+
+def _output(q: torch.Tensor, b: int, hq: int, tq: int, d: int) -> torch.Tensor:
+    """The kernel's output buffer, ``(B, Tq, Hq, D)``, as its (B, Hq, Tq, D)
+    view."""
+    return torch.empty((b, tq, hq, d), dtype=q.dtype,
+                       device=q.device).permute(0, 2, 1, 3)
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         **kw) -> torch.Tensor:
+    """What :func:`flash_attention` returns for these operands, on ``meta``
+    tensors: the output's shape, dtype and layout, after the same checks.
+    A meta tensor holds no data, so nothing is launched and nothing is
+    counted: this is how a dry run (``launch.dryrun``) sees the kernel."""
+    b, hq, _, tq, _, d = _check(q, k, v, "meta")
+    return _output(q, b, hq, tq, d)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int, softcap: float, sm_scale: float,
+                    q_offset: int = 0, kv_len: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Attention on the card; see ``ref.attention_ref`` for the function."""
+    b, hq, hkv, tq, tk, d = _check(q, k, v, "cuda")
+    tensors = (q, k, v)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in tensors)
     kv = tk if kv_len is None else max(0, min(int(kv_len), tk))
-    out = torch.empty((b, tq, hq, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    out = _output(q, b, hq, tq, d)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],

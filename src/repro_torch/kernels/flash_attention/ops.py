@@ -2,7 +2,9 @@
 
 A CUDA tensor of f32, bf16 or f16 launches the CUDA kernel
 (``kernel.flash_attention``); a CPU tensor takes the plain version
-(``ref.attention_ref``); anything else raises.  Unlike the TPU wrapper
+(``ref.attention_ref``); a ``meta`` tensor, which holds no data, gets the
+kernel's output shape, dtype and layout (``kernel.flash_attention_meta``,
+what a dry run sees); anything else raises.  Unlike the TPU wrapper
 nothing is padded: the kernel takes any head dim up to 256 and any
 sequence lengths, and ``kv_len`` is a runtime argument.
 
@@ -59,6 +61,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         forward_fn = attention_ref
     elif q.device.type == "cuda":
         forward_fn = kernel.flash_attention
+    elif q.device.type == "meta":
+        forward_fn = kernel.flash_attention_meta
     else:
         raise ValueError(f"no flash_attention for device {q.device}")
     return _record.kernel("flash_attention", AttentionFunction.apply, q, k, v,

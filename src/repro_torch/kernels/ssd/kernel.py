@@ -59,17 +59,17 @@ def route(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     return "simt"
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor, c: torch.Tensor, *, chunk: int):
-    """Chunk-local SSD terms on the card; see ``ref.ssd_chunk_ref``."""
+def _check(x, dt, a, b, c, chunk: int, device: str):
+    """(bh, t, p, bg, s) of a call on ``device`` tensors the kernel takes;
+    raises as the launch does for any other."""
     _build.refuse_dtensor("ssd_chunk", x, dt, a, b, c)
     _build.refuse_grad("ssd_chunk", x, dt, a, b, c)
     tensors = (x, dt, a, b, c)
     if any(v.dtype != torch.float32 for v in tensors):
         raise TypeError(f"ssd_chunk takes f32, got {[v.dtype for v in tensors]}")
-    if any(v.device.type != "cuda" or v.device != x.device for v in tensors):
-        raise ValueError("ssd_chunk wants CUDA tensors on one device, got "
-                         f"{[str(v.device) for v in tensors]}")
+    if any(v.device.type != device or v.device != x.device for v in tensors):
+        raise ValueError(f"ssd_chunk wants {device.upper()} tensors on one "
+                         f"device, got {[str(v.device) for v in tensors]}")
     bh, t, p = x.shape
     bg, s = b.shape[0], b.shape[-1]
     if (dt.shape != (bh, t) or a.shape != (bh,) or b.shape != (bg, t, s)
@@ -80,14 +80,36 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             f"ssd_chunk: x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, chunk "
             f"{chunk} (T a multiple of chunk; chunk, P, S <= {MAX_DIM})")
+    return bh, t, p, bg, s
+
+
+def _outputs(dev, bh: int, t: int, p: int, s: int, nc: int):
+    """The kernel's four f32 outputs: y, states, C ⊙ exp(ℓ), the decay."""
+    return (torch.empty((bh, t, p), dtype=torch.float32, device=dev),
+            torch.empty((bh, nc, s, p), dtype=torch.float32, device=dev),
+            torch.empty((bh, t, s), dtype=torch.float32, device=dev),
+            torch.empty((bh, nc), dtype=torch.float32, device=dev))
+
+
+def ssd_chunk_meta(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, *, chunk: int):
+    """What :func:`ssd_chunk` returns for these operands, on ``meta``
+    tensors: the outputs' shapes, dtypes and layouts, after the same
+    checks.  A meta tensor holds no data, so nothing is launched and nothing
+    is counted: this is how a dry run (``launch.dryrun``) sees the kernel."""
+    bh, t, p, _, s = _check(x, dt, a, b, c, chunk, "meta")
+    return _outputs(x.device, bh, t, p, s, t // chunk)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, *, chunk: int):
+    """Chunk-local SSD terms on the card; see ``ref.ssd_chunk_ref``."""
+    bh, t, p, bg, s = _check(x, dt, a, b, c, chunk, "cuda")
     x, dt, b, c = (_rows(v) for v in (x, dt, b, c))
     a = a.contiguous()
     nc = t // chunk
     dev = x.device
-    y = torch.empty((bh, t, p), dtype=torch.float32, device=dev)
-    states = torch.empty((bh, nc, s, p), dtype=torch.float32, device=dev)
-    c_dec = torch.empty((bh, t, s), dtype=torch.float32, device=dev)
-    decay = torch.empty((bh, nc), dtype=torch.float32, device=dev)
+    y, states, c_dec, decay = _outputs(dev, bh, t, p, s, nc)
     strides = (ctypes.c_longlong * 8)(*x.stride()[:2], dt.stride(0),
                                       dt.stride(1), *b.stride()[:2],
                                       *c.stride()[:2])

@@ -3,8 +3,9 @@
     y = y_intra + (C ⊙ exp(ℓ)) @ h_prev_chunk
 
 ``ssd_chunk`` launches the CUDA kernel (``kernel.ssd_chunk``) for a CUDA
-tensor and takes the plain version (``ref.ssd_chunk_ref``) for a CPU tensor,
-either inside :class:`SSDChunkFunction`, whose backward is the plain
+tensor and takes the plain version (``ref.ssd_chunk_ref``) for a CPU tensor;
+a ``meta`` tensor gets the kernel's outputs' shapes and dtypes
+(``kernel.ssd_chunk_meta``, what a dry run sees); each runs inside :class:`SSDChunkFunction`, whose backward is the plain
 chunk's gradient, recomputed (``ref.ssd_chunk_grads``; no kernel launch).
 The recurrence over chunk states runs as a loop over chunks in torch ops: it
 is what the reference's ``associative_scan`` computes, in another order.
@@ -55,6 +56,8 @@ def ssd_chunk(x, dt, a, b, c, *, chunk: int):
         forward_fn = ssd_chunk_ref
     elif x.device.type == "cuda":
         forward_fn = kernel.ssd_chunk
+    elif x.device.type == "meta":
+        forward_fn = kernel.ssd_chunk_meta
     else:
         raise ValueError(f"no ssd_chunk for device {x.device}")
     return _record.kernel("ssd_chunk", SSDChunkFunction.apply, x, dt, a, b, c,

@@ -137,3 +137,27 @@ class ModelConfig:
         dense_mlp = (3 if self.mlp_type in ("swiglu", "geglu") else 2) * d * f
         inactive = self.n_layers * (self.n_experts - self.top_k) * dense_mlp
         return int(self.param_count() - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell from the assignment matrix."""
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape_cell(name: str) -> ShapeCell:
+    for c in SHAPE_CELLS:
+        if c.name == name:
+            return c
+    raise KeyError(name)

@@ -181,4 +181,8 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     out = env.constrain(experts(params, buf, cfg.mlp_type, env), buffers)
     y_rep = cm.kernel_call(_gather, 0, out, r.assign, r.pos, r.keep)  # (ds, nl·k, D)
     y = (y_rep.reshape(ds, nl, k, d) * r.weights[..., None]).sum(dim=2)
+    if b % ds:
+        # fewer sequences than shards (the batch itself replicates): DTensor
+        # cannot view shards that split sequences as (B, T)
+        y = env.replicate(y)
     return cm.anchor(y.reshape(b, t, d)), r.aux

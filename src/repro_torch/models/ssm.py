@@ -114,7 +114,11 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h_fin = (torch.exp(a * dt1)[..., None, None] * state["h"]
                  + dt1[..., None, None] * bg[..., None]
                  * xh[:, 0].float()[:, :, None, :])
-        y = torch.einsum("bhs,bhsp->bhp", cg, h_fin)[:, None].to(x.dtype)
+        if env.mesh is None:
+            y = torch.einsum("bhs,bhsp->bhp", cg, h_fin)
+        else:   # torch 2.11's DTensor refuses the einsum's flatten of a sharded (B, H)
+            y = (cg[..., None] * h_fin).sum(dim=2)
+        y = y[:, None].to(x.dtype)
     else:
         # placed by batch before (B,T,H,P) -> ssd_scan's (B·H, T, P): a
         # flatten may shard only its leading dim; B and C stay per group

@@ -504,6 +504,33 @@ def test_ssd_scan_grads_on_the_card_match_plain(card):
         torch.testing.assert_close(g_, w_, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
+@pytest.mark.parametrize("case", [
+    (2, 8, 2, 300, 300, 128, torch.bfloat16, dict(causal=True, window=64)),  # wgmma
+    (2, 4, 4, 40, 40, 80, torch.float32, dict(causal=True)),                 # tile
+    (4, 8, 2, 1, 320, 64, torch.bfloat16, dict(causal=False, kv_len=200)),  # rows
+])
+def test_meta_branches_give_the_kernels_outputs(card, case):
+    """The shape-only branch a dry run takes (``meta`` operands) gives the
+    shapes, dtypes and strides of what the kernels return on the card."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd.ops import ssd_chunk
+    b, hq, hkv, tq, tk, d, dt, kw = case
+    g = torch.Generator(device=card).manual_seed(tq)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dt)
+               for s in ((b, hq, tq, d), (b, hkv, tk, d), (b, hkv, tk, d)))
+    real = flash_attention(q, k, v, **kw)
+    meta = flash_attention(*(t.to("meta") for t in (q, k, v)), **kw)
+    assert (meta.shape, meta.dtype, meta.stride()) == (real.shape, real.dtype, real.stride())
+    x = torch.randn(8, 256, 64, generator=g, device=card)
+    args = (x, torch.rand(8, 256, generator=g, device=card), -torch.rand(8, device=card),
+            torch.randn(2, 256, 64, generator=g, device=card),
+            torch.randn(2, 256, 64, generator=g, device=card))
+    real = ssd_chunk(*args, chunk=128)
+    meta = ssd_chunk(*(t.to("meta") for t in args), chunk=128)
+    assert [(m.shape, m.dtype, m.stride()) for m in meta] == [
+        (r.shape, r.dtype, r.stride()) for r in real]
+
+
 def test_kernels_without_backward_refuse_grad_on_the_card(card):
     a = torch.ones((1, 1, 8, 8), device=card, requires_grad=True)
     with pytest.raises(TypeError, match="stacked_matmul has no backward"):

@@ -163,6 +163,44 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+_DRYRUN = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+import torch
+import repro_torch.launch.mesh as mesh
+import repro_torch.launch.specs as specs
+import repro_torch.launch.costs as costs
+import repro_torch.launch.dryrun as dryrun
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.config import ShapeCell
+cfg = get_smoke_config("zamba2-2.7b")
+cell = ShapeCell("t", 32, 4, "train")
+opt = dryrun.pick_optimizer(cfg, cfg.param_count())[0]
+assert dryrun.estimate(cfg, cell, opt, 1, None)["memory"]["peak_bytes"] > 0
+with mesh.fake_process_group(4):
+    m = mesh.make_host_mesh((2, 2), ("data", "model"))
+    r = dryrun.estimate(cfg, cell, opt, 2, m, mode="tp_sp")
+    assert r["hlo"]["collective_bytes"] > 0
+specs.input_specs(get_smoke_config("mamba2-370m"), "long_500k")
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_dryrun_imports_no_jax_and_no_reference():
+    """The dry run's four modules import, and run a SMOKE step with and
+    without a fake mesh, with jax and the JAX package blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_sources_have_no_jax_or_reference_imports():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
