@@ -6663,13 +6663,15 @@ def dry_cli_rows(child, total: int, ck, waited: float):
                "collective_bytes": {k: h[f"{k}_bytes"] for k in (
                    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                    "collective-permute") if h[f"{k}_bytes"]},
+               "collective_bytes_by_axis": h["collective_bytes_by_axis"],
                "total_s": r["total_s"], "ended_s": waited}
         rows.append(row)
         print(f"[20] dryrun {row['cell']}: mode {row['mode']}, accumulation "
               f"{row['accum_steps']}, rank 0's peak {row['peak_gb']:.2f} GB of "
               f"{total / 1e9:.2f} GB ({'fits' if row['fits'] else 'DOES NOT FIT'}), "
               f"{row['flops']:.4e} flops, collectives "
-              f"{json.dumps(row['collective_bytes'])} bytes ({row['total_s']} s)",
+              f"{json.dumps(row['collective_bytes'])} bytes, by mesh axis "
+              f"{json.dumps(row['collective_bytes_by_axis'])} ({row['total_s']} s)",
               flush=True)
     return rows
 
@@ -6904,7 +6906,8 @@ def phase_dryrun(torch, seed, smi, train_ref):
     """Phase 20: MoE training on one card (mixtral-8x7b at its published
     width, 4 of 32 layers), the dry run's estimates of that step and of
     phase 15's held to the card's allocator, and the dry run's CLI over
-    DRY_CLI_CELLS.  Returns the kernels' launches by route."""
+    DRY_CLI_CELLS.  Returns the kernels' launches by route in the MoE
+    training (the dry run launches none)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.models.config import ShapeCell
@@ -6913,11 +6916,13 @@ def phase_dryrun(torch, seed, smi, train_ref):
     t_phase = time.perf_counter()
     ck = Checks("[20]")
     rec = {"card": smi}
+    cfg, opt, step, counts = moe_train(torch, seed, smi, ck, rec)
+    rec["moe_step"] = step
+    rec["moe_s"] = time.perf_counter() - t_phase
+    # the CLI children start after the timed and profiled steps, which keep
+    # the host to themselves, and run beside the two estimates
     children = DryCli()
     try:
-        cfg, opt, step, counts = moe_train(torch, seed, smi, ck, rec)
-        rec["moe_step"] = step
-        rec["moe_s"] = time.perf_counter() - t_phase
         est = dryrun.estimate(cfg, ShapeCell("phase20", DRY_SEQ, DRY_BATCH, "train"),
                               opt, 1, None)
         rec["held"] = [held_to_card(torch, ck, f"{cfg.name} {cfg.n_layers} layers, B "
@@ -7053,14 +7058,14 @@ def main(argv=None) -> int:
     meshed = phase_mesh(torch, args.seed, smi, train_ref)
     gc.collect()
     torch.cuda.empty_cache()
-    dry = phase_dryrun(torch, args.seed, smi, train_ref)
+    moe_trained = phase_dryrun(torch, args.seed, smi, train_ref)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
     for line in kernels:
         if line["name"].startswith(("flash_attention.", "ssd_chunk.")):
             kind, route = line["name"].split(".")
             for path, counts in (("train", trained), ("families", families),
                                  ("encdec", encdec), ("moe", moe), ("mesh", meshed),
-                                 ("dryrun", dry)):
+                                 ("moe_train", moe_trained)):
                 line["launches_by_path"][path] = counts.get(f"{kind}/{route}", 0)
                 line["launches"] += counts.get(f"{kind}/{route}", 0)
                 if "launches_by_route" in line:

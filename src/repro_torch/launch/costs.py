@@ -39,9 +39,15 @@ work and are skipped.  The keys of :meth:`CostRecorder.hlo` are
   shapes.  The mesh must be a ``"cuda"`` mesh: on a ``"cpu"`` one DTensor
   replaces an all-to-all by an all-gather and a chunk, which NCCL never
   does.
-* ``top_collective_sites``: bytes by site, the innermost ``repro_torch``
-  functions on the Python stack when the collective was issued (the
-  reference keeps the tail of the op's name path), largest first.
+* ``collective_bytes_by_axis``: the same bytes by the mesh axes each
+  collective's process group spans (``"model"``, ``"data"``, ``"pod"``,
+  or several joined by ``+``), which ``analyze_hlo`` cannot tell apart:
+  on H100 nodes the ``model`` axis runs over NVLink, the others over the
+  network (``launch.mesh``).
+* ``top_collective_sites``: bytes by site and axes, the site the innermost
+  ``repro_torch`` functions on the Python stack when the collective was
+  issued (the reference keeps the tail of the op's name path), largest
+  first.
 
 Memory (:attr:`CostRecorder.live`, :attr:`CostRecorder.peak`) is the live
 bytes of rank 0's local tensors: each storage an op creates is counted from
@@ -191,14 +197,17 @@ class CostRecorder(TorchDispatchMode):
     """Counts the flops, bytes, collectives and live memory of the local
     ops it sees (module docstring).  Enter it with :func:`recording`."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.flops = 0.0
         self.bytes = 0.0
         self.fused_bytes = 0.0
         self.coll = dict.fromkeys(COLLECTIVES, 0)
         self.coll_counts = dict.fromkeys(COLLECTIVES, 0)
-        self.sites: Dict[str, int] = collections.Counter()
+        self.axes: Dict[str, int] = collections.Counter()
+        self.sites: Dict[tuple, int] = collections.Counter()
+        self._group_axes: Dict[str, str] = {}
         self.kernels: Dict[str, int] = collections.Counter()
         self.live = 0
         self.peak = 0
@@ -253,7 +262,9 @@ class CostRecorder(TorchDispatchMode):
             n = sum(map(_nbytes, outs))
             self.coll[kind] += n
             self.coll_counts[kind] += 1
-            self.sites[_site()] += n
+            axes = self._axes(args)
+            self.axes[axes] += n
+            self.sites[(_site(), axes)] += n
         if name in _NO_TRAFFIC or getattr(func, "is_view", False):
             return out
         from torch.utils.flop_counter import flop_registry
@@ -265,6 +276,27 @@ class CostRecorder(TorchDispatchMode):
         if torch.Tag.pointwise not in func.tags and name not in _MOVES:
             self.fused_bytes += moved
         return out
+
+    def _axes(self, args) -> str:
+        """The mesh axes along which the ranks of a collective's group differ,
+        joined by ``+``; the group's name when the recorder has no mesh.  A
+        functional collective names its group by its last string argument,
+        a ``c10d`` one passes the group itself, first of its script objects."""
+        from torch.distributed import ProcessGroup
+        names = [a for a in args if isinstance(a, str)]
+        name = names[-1] if names else ProcessGroup.unbox(
+            next(a for a in args if isinstance(a, torch.ScriptObject))).group_name
+        if name not in self._group_axes:
+            axes = name
+            if self.mesh is not None:
+                import torch.distributed as dist
+                from torch.distributed.distributed_c10d import _resolve_process_group
+                ranks = dist.get_process_group_ranks(_resolve_process_group(name))
+                at = np.argwhere(np.isin(self.mesh.mesh.cpu().numpy(), ranks))
+                axes = "+".join(n for d, n in enumerate(self.mesh.mesh_dim_names)
+                                if len(set(at[:, d])) > 1)
+            self._group_axes[name] = axes
+        return self._group_axes[name]
 
     # -- the kernel hook (kernels._record) ------------------------------------
     def opaque(self, name: str, fn, args, kwargs):
@@ -298,16 +330,19 @@ class CostRecorder(TorchDispatchMode):
         for k in COLLECTIVES:
             out[f"{k}_bytes"] = self.coll[k]
             out[f"{k}_count"] = self.coll_counts[k]
+        out["collective_bytes_by_axis"] = dict(self.axes)
         sites = sorted(self.sites.items(), key=lambda kv: -kv[1])[:top_sites]
-        out["top_collective_sites"] = [{"site": s, "bytes": b} for s, b in sites]
+        out["top_collective_sites"] = [{"site": s, "axes": a, "bytes": b}
+                                       for (s, a), b in sites]
         return out
 
 
 @contextlib.contextmanager
-def recording() -> Iterator[CostRecorder]:
+def recording(mesh=None) -> Iterator[CostRecorder]:
     """A :class:`CostRecorder` active for the block, the kernel wrappers'
-    calls routed to it (``kernels._record.ACTIVE``)."""
-    rec = CostRecorder()
+    calls routed to it (``kernels._record.ACTIVE``); ``mesh`` names the
+    axes of its collectives."""
+    rec = CostRecorder(mesh)
     token = _record.ACTIVE.set(rec)
     try:
         with rec:
@@ -316,8 +351,9 @@ def recording() -> Iterator[CostRecorder]:
         _record.ACTIVE.reset(token)
 
 
-def analyze(fn, *args, **kwargs) -> Dict[str, object]:
-    """``analyze_hlo``'s keys for one run of ``fn(*args, **kwargs)``."""
-    with recording() as rec:
+def analyze(fn, *args, mesh=None, **kwargs) -> Dict[str, object]:
+    """``analyze_hlo``'s keys for one run of ``fn(*args, **kwargs)``, the
+    collectives' axes named by ``mesh``."""
+    with recording(mesh) as rec:
         fn(*args, **kwargs)
     return rec.hlo()

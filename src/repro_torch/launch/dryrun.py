@@ -184,7 +184,7 @@ def estimate(cfg: ModelConfig, cell: ShapeCell, optimizer=None,
     if not compile_:
         return out
     t1 = time.time()
-    with costs.recording() as rec:
+    with costs.recording(mesh) as rec:
         arg_bytes = rec.track(args)
         result = step(*args)
     out["trace_s"] = round(time.time() - t1, 1)

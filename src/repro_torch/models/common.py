@@ -117,10 +117,12 @@ class ShardEnv:
 
     def sanitize(self, spec: Sequence, shape) -> Spec:
         """Drop spec entries whose mesh extent does not divide the dim (the
-        non-divisible cases replicate rather than shard unevenly)."""
+        non-divisible cases replicate rather than shard unevenly), and those
+        of a dim of size 1 (placed on a one-rank axis, it shards nothing, and
+        DTensor's view rules refuse to drop or flatten it)."""
         return Spec(*(None if names is not None
-                      and shape[i] % self._axis_size(names) != 0 else names
-                      for i, names in enumerate(spec)))
+                      and (shape[i] == 1 or shape[i] % self._axis_size(names) != 0)
+                      else names for i, names in enumerate(spec)))
 
     def constrain(self, x: torch.Tensor, spec: Sequence) -> torch.Tensor:
         """``x`` redistributed to ``spec`` (sanitized for its shape): the
@@ -282,9 +284,12 @@ def write(dst: torch.Tensor, index: tuple, src: torch.Tensor) -> None:
 
 def whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """A DTensor with dim ``dim`` gathered on every rank (its other
-    placements, partial sums included, kept)."""
+    placements, partial sums included, kept, but a dim of size 1 replicated
+    too, at no cost: it lies on a one-rank mesh axis, and DTensor's view
+    rules refuse to flatten it placed there)."""
     from torch.distributed.tensor import Replicate
-    places = tuple(Replicate() if p.is_shard(dim) else p for p in x.placements)
+    places = tuple(Replicate() if p.is_shard() and (p.dim == dim or x.shape[p.dim] == 1)
+                   else p for p in x.placements)
     return x if places == tuple(x.placements) else x.redistribute(x.device_mesh, places)
 
 

@@ -255,4 +255,4 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
         x = x + cm.mlp_apply(p["mlp"], hh, cfg.mlp_type, env)
     cache["pos"] = pos + 1
     x = cm.rms_norm(x, params["dec_norm"], cfg.norm_eps)
-    return _logits(params, x), cache
+    return _logits(params, x, env), cache

@@ -135,4 +135,4 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                                       cfg.attn_window, env)
     cache["pos"] = pos + 1
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x), cache
+    return _logits(params, x, env), cache

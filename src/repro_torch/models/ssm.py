@@ -114,11 +114,12 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h_fin = (torch.exp(a * dt1)[..., None, None] * state["h"]
                  + dt1[..., None, None] * bg[..., None]
                  * xh[:, 0].float()[:, :, None, :])
-        if env.mesh is None:
-            y = torch.einsum("bhs,bhsp->bhp", cg, h_fin)
-        else:   # torch 2.11's DTensor refuses the einsum's flatten of a sharded (B, H)
-            y = (cg[..., None] * h_fin).sum(dim=2)
-        y = y[:, None].to(x.dtype)
+        # over a mesh on local shards, C placed as the state is: torch
+        # 2.11's DTensor refuses the einsum's flatten of a sharded (B, H)
+        if env.mesh is not None:
+            cg = cg.redistribute(h_fin.device_mesh, h_fin.placements)
+        y = cm.kernel_call(lambda c, hs: torch.einsum("bhs,bhsp->bhp", c, hs),
+                           1, cg, h_fin)[:, None].to(x.dtype)
     else:
         # placed by batch before (B,T,H,P) -> ssd_scan's (B·H, T, P): a
         # flatten may shard only its leading dim; B and C stay per group
@@ -230,4 +231,4 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
         cm.write(cache["conv"], (i,), st["conv"])
         cm.write(cache["h"], (i,), st["h"])
     cache["pos"] += 1
-    return _logits(params, cm.rms_norm(x, params["final_norm"], cfg.norm_eps)), cache
+    return _logits(params, cm.rms_norm(x, params["final_norm"], cfg.norm_eps), env), cache

@@ -421,6 +421,26 @@ def test_costs_are_per_rank_on_a_fake_mesh(ref):
     assert gather["top_collective_sites"][0]["bytes"] == 64 * 32 * 4
 
 
+def test_collectives_by_mesh_axis():
+    """Each collective's bytes go to the mesh axes its group spans: a gather
+    over ``model`` (NVLink on H100 nodes) apart from one over ``data``, and
+    one over both dims at once (a flattened group) under ``data+model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.core import placement as _pl
+    with lmesh.fake_process_group(8):
+        m = lmesh.make_host_mesh((2, 4), ("data", "model"))
+        x = _pl.place(torch.empty(64, 32, device="meta"), m, (Shard(0), Shard(1)))
+        both = m["data", "model"]._flatten("dp_tp")
+        y = _pl.place(torch.empty(64, 32, device="meta"), both, (Shard(0),))
+        r = costs.analyze(lambda: x.redistribute(m, (Replicate(), Replicate())), mesh=m)
+        flat = costs.analyze(lambda: y.redistribute(both, (Replicate(),)), mesh=m)
+    # rank 0 gathers (32, 32) over model, then (64, 32) over data
+    assert r["collective_bytes_by_axis"] == {"model": 32 * 32 * 4, "data": 64 * 32 * 4}
+    assert sum(r["collective_bytes_by_axis"].values()) == r["collective_bytes"]
+    assert {s["axes"] for s in r["top_collective_sites"]} == {"model", "data"}
+    assert flat["collective_bytes_by_axis"] == {"data+model": 64 * 32 * 4}
+
+
 def test_costs_count_kernel_calls_by_their_formula():
     q = torch.empty(2, 4, 32, 16, device="meta", dtype=torch.bfloat16)
     k = torch.empty(2, 2, 32, 16, device="meta", dtype=torch.bfloat16)
@@ -481,6 +501,22 @@ def test_fewer_sequences_than_data_ranks():
         m = lmesh.make_host_mesh((4, 1), ("data", "model"))
         r = dryrun.estimate(get_smoke_config("mixtral-8x7b"), cell, mesh=m)
     assert r["hlo"]["all-gather_count"] > 0 and r["memory"]["peak_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "llava-next-mistral-7b", "mixtral-8x7b",
+                                  "grok-1-314b", "mamba2-370m", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
+def test_meshes_with_a_one_rank_axis(arch):
+    """Prefill and decode of one sequence over a (1, 4) mesh and of four
+    over a (4, 1) one: a dim of size 1 (the batch, the decoded token's
+    sequence) placed on a one-rank axis is replicated before DTensor flattens
+    it, in every family."""
+    for shape, b in (((1, 4), 1), ((4, 1), 4)):
+        for kind in ("prefill", "decode"):
+            with lmesh.fake_process_group(4):
+                m = lmesh.make_host_mesh(shape, ("data", "model"))
+                r = dryrun.estimate(get_smoke_config(arch), ShapeCell(kind, 64, b, kind), mesh=m)
+            assert r["memory"]["peak_bytes"] > 0, (shape, kind)
 
 
 def test_cli_at_full_size(cli):

@@ -22,7 +22,7 @@ lies within 1e-2 of the one-device step (``tests/test_distributed.py``'s
 bound).  The ranks also run ``compressed_psum`` (the reference's bounds),
 ``AsyncCheckpointer`` (one writer, the files of a plain save) and
 ``checkpoint.restore(..., shardings)`` from 4 ranks onto a 2-rank mesh,
-hold ``forward`` and ``decode_step`` over a 2 x 2 mesh to the port's own
+hold ``forward`` and ``decode_step`` over a 2 x 2 and a 4 x 1 mesh to the port's own
 results without one, and hold a bf16 output projection over the model axis
 to one device's fp32 product.  A last test runs ``launch.train --mesh data=2,model=2 --device cpu`` under
 ``torchrun`` through a crash and a resume.
@@ -61,9 +61,10 @@ CASES = {
 }
 
 
-# forward and decode over a 2 x 2 mesh (the port against itself without one):
-# GQA with one KV head, the hybrid's caches, the encoder-decoder's frames
-INFER = ("yi-9b", "zamba2-2.7b", "seamless-m4t-medium")
+# forward and decode over a 2 x 2 and a 4 x 1 mesh (the port against itself
+# without one): GQA with one KV head, the hybrid's and Mamba's caches, the
+# encoder-decoder's frames
+INFER = ("yi-9b", "zamba2-2.7b", "mamba2-370m", "seamless-m4t-medium")
 
 
 def numpy_inputs(arch, overrides):
@@ -208,40 +209,45 @@ for name, (arch, over, shape, mode) in CASES.items():
                   "placed": all(pl.is_dtensor(l) for l in leaves),
                   "count": int(pl.local(new.opt_state["count"]))}}
 
-# forward and decode over a 2 x 2 mesh against the port without one
+# forward and decode over a 2 x 2 mesh, and over a 4 x 1 one (a one-rank
+# model axis: the single token's sequence dim placed on it), against the port
+# without one
 mesh22 = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+mesh41 = make_mesh((4, 1), ("data", "model"), device_type="cpu")
 
-def place(t):
-    return pl.place(t, mesh22, pl.spec_placements(
-        mesh22, shlib.Spec("data", *([None] * (t.ndim - 1)))))
+def place(t, mesh=mesh22):
+    return pl.place(t, mesh, pl.spec_placements(
+        mesh, shlib.Spec("data", *([None] * (t.ndim - 1)))))
 
-for arch in INFER:
-    cfg, tree, tokens, _ = numpy_inputs(arch, {{}})
-    model = build_model(cfg)
-    params = params_from_numpy(tree, "cpu")
-    placed = shlib.distribute(params, shlib.param_shardings(params, mesh22))
-    env = cm.ShardEnv(mesh=mesh22)
-    tok = torch.from_numpy(tokens[:4, :6])
-    frames = (torch.from_numpy(np.random.default_rng(3).normal(
-        size=(4, 6, cfg.frontend_dim)).astype(np.float32)) if cfg.family == "encdec" else None)
-    with torch.no_grad():
-        want, _ = model.forward(params, tok, frames)
-        got, _ = model.forward(placed, place(tok), None if frames is None else place(frames),
-                               env=env)
-        errs = [float((pl.gather(got) - want).abs().max())]
-        kw = {{"enc_len": 6}} if frames is not None else {{}}
-        cache = model.init_cache(4, 8, device="cpu", **kw)
-        dcache = shlib.distribute(cache, shlib.to_shardings(
-            shlib.cache_specs(cache, mesh22, ("data",)), mesh22))
-        if frames is not None:
-            cache["enc_out"] = model.module.encode(params, cfg, frames)
-            dcache["enc_out"] = model.module.encode(placed, cfg, place(frames), env)
-        for i in range(tok.shape[1]):
-            lw, cache = model.decode_step(params, cache, tok[:, i:i + 1])
-            lg, dcache = model.decode_step(placed, dcache, place(tok[:, i:i + 1]), env=env)
-            errs.append(float((pl.gather(lg) - lw).abs().max()))
-    meta[f"infer_{{arch}}"] = {{"errs": errs, "scale": float(want.abs().max()),
-                              "placed": pl.is_dtensor(got) and pl.is_dtensor(lg)}}
+for key, mesh in (("infer", mesh22), ("infer41", mesh41)):
+    for arch in INFER:
+        cfg, tree, tokens, _ = numpy_inputs(arch, {{}})
+        model = build_model(cfg)
+        params = params_from_numpy(tree, "cpu")
+        placed = shlib.distribute(params, shlib.param_shardings(params, mesh))
+        env = cm.ShardEnv(mesh=mesh)
+        tok = torch.from_numpy(tokens[:4, :6])
+        frames = (torch.from_numpy(np.random.default_rng(3).normal(
+            size=(4, 6, cfg.frontend_dim)).astype(np.float32)) if cfg.family == "encdec" else None)
+        with torch.no_grad():
+            want, _ = model.forward(params, tok, frames)
+            got, _ = model.forward(placed, place(tok, mesh),
+                                   None if frames is None else place(frames, mesh), env=env)
+            errs = [float((pl.gather(got) - want).abs().max())]
+            kw = {{"enc_len": 6}} if frames is not None else {{}}
+            cache = model.init_cache(4, 8, device="cpu", **kw)
+            dcache = shlib.distribute(cache, shlib.to_shardings(
+                shlib.cache_specs(cache, mesh, ("data",)), mesh))
+            if frames is not None:
+                cache["enc_out"] = model.module.encode(params, cfg, frames)
+                dcache["enc_out"] = model.module.encode(placed, cfg, place(frames, mesh), env)
+            for i in range(tok.shape[1]):
+                lw, cache = model.decode_step(params, cache, tok[:, i:i + 1])
+                lg, dcache = model.decode_step(placed, dcache, place(tok[:, i:i + 1], mesh),
+                                               env=env)
+                errs.append(float((pl.gather(lg) - lw).abs().max()))
+        meta[f"{{key}}_{{arch}}"] = {{"errs": errs, "scale": float(want.abs().max()),
+                                     "placed": pl.is_dtensor(got) and pl.is_dtensor(lg)}}
 
 # an output projection in bf16 over the model axis (w_down's placement): its
 # partial sums formed and reduced in fp32, against one device's fp32 product
@@ -428,6 +434,18 @@ def test_forward_and_decode_on_a_mesh(runs, arch):
     _, _, ports = runs
     for meta, _ in ports:
         got = meta[f"infer_{arch}"]
+        assert got["placed"]
+        assert max(got["errs"]) <= 1e-4 * max(1.0, got["scale"]), got
+
+
+@pytest.mark.parametrize("arch", INFER)
+def test_forward_and_decode_on_a_mesh_with_a_one_rank_model_axis(runs, arch):
+    """The same over a 4 x 1 mesh, whose one-rank ``model`` axis takes the
+    single token's sequence dim in decode: the logits of the port without a
+    mesh, at 1e-4 of their scale."""
+    _, _, ports = runs
+    for meta, _ in ports:
+        got = meta[f"infer41_{arch}"]
         assert got["placed"]
         assert max(got["errs"]) <= 1e-4 * max(1.0, got["scale"]), got
 
